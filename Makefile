@@ -13,7 +13,7 @@ bench:
 	python bench.py
 
 smoke:
-	python tools/tpu_smoke.py
+	python chip_smoke.py
 
 examples:
 	for ex in examples/ex*.py; do echo "== $$ex"; python $$ex || exit 1; done

@@ -4,13 +4,13 @@
 // host-side contour-extraction utilities depend on (reference core.py:1470,
 // tests/test_breaking.py:65) — skimage is not part of this framework, and the
 // extraction/grouping path is inherently serial/host-side (unlike total
-// perimeter length, which runs as a data-parallel TPU kernel in
+// perimeter length, which runs as a data-parallel XLA kernel in
 // diagnostics/length.py).
 //
 // Semantics: corners with value > level are "above"; vertices are linearly
 // interpolated on cut edges; ambiguous (saddle) cells follow the
 // fully-connected-low rule (above-level corners cut off individually),
-// matching the TPU kernel and skimage's default.  Cells with any NaN corner
+// matching the device kernel and skimage's default.  Cells with any NaN corner
 // emit no segments.  Output polylines are (r, c) index coordinates like
 // skimage's find_contours; orientation/order of polylines is unspecified.
 //

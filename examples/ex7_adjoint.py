@@ -28,11 +28,11 @@ import jax.numpy as jnp
 from xcontour_tpu import grid as G
 from xcontour_tpu import core, pipeline
 from xcontour_tpu.diagnostics import lwa as _lwa
-from xcontour_tpu.utils.ncio import load_dataset
+from xcontour_tpu.utils import synth
 
 
 def main():
-    ds = load_dataset("/root/reference/Data/barotropic_vorticity.nc")
+    ds, _ = synth.synth_barotropic_vorticity()
     lat = np.asarray(ds["latitude"])[::2]
     lon = np.asarray(ds["longitude"])[::2]
     vor = np.asarray(ds["absolute_vorticity"])[::2, ::2]
@@ -71,11 +71,11 @@ def main():
           f"finite fraction {np.isfinite(ksens).mean():.3f}")
     assert np.isfinite(sens).all() and np.isfinite(ksens).all()
     assert np.abs(sens).max() > 0 and np.abs(ksens).max() > 0
-    # golden pins (bundled snapshot; f32 gradients wander more across
-    # backends than primals, hence the wider bands)
-    _pin("sum_lwa_sq", float(value), 6.913689e15, rtol=1e-2)
-    _pin("sum_nkeff", float(kval), 689.0743, rtol=1e-2)
-    _pin("dJ_dq_max", float(np.abs(sens).max()), 3.189302e19, rtol=5e-2)
+    # golden pins on the seeded snapshot: the two losses' values from the
+    # float64 oracle (tools/pin_examples.py); the oracle has no gradient,
+    # so the gradients are checked only for being finite and nonzero
+    _pin("sum_lwa_sq", float(value), 6.325803e16, rtol=1e-2)
+    _pin("sum_nkeff", float(kval), 1166.187, rtol=1e-2)
 
     import matplotlib
     matplotlib.use("Agg")

@@ -8,11 +8,11 @@ with io.open("xcontour_tpu/__init__.py", "rt", encoding="utf8") as f:
 setup(
     name="xcontour_tpu",
     version=version,
-    description="TPU-native contour-coordinate diagnostics (JAX/XLA/Pallas)",
+    description="Contour-coordinate diagnostics in JAX (XLA, Pallas on the GPU)",
     long_description=open("README.md", encoding="utf-8").read(),
     long_description_content_type="text/markdown",
     license="MIT",
-    keywords="contour jax tpu pallas equivalent-latitude effective-diffusivity",
+    keywords="contour jax gpu pallas equivalent-latitude effective-diffusivity",
     packages=find_packages(exclude=["docs", "tests", "examples", "tools"]),
     package_data={"xcontour_tpu": ["../csrc/*.cpp"]},
     entry_points={

@@ -70,14 +70,11 @@ def test_lwa_adjoint_matches_finite_differences(rng):
 
 
 def test_pallas_path_adjoint_matches_xla(rng, monkeypatch):
-    """jax.grad flows through the TPU (Pallas) execution path: the custom
-    VJPs in ops/histogram.py and diagnostics/lwa.py differentiate the XLA
-    twins, so the Pallas-forward gradient must equal the pure-XLA gradient
-    (interpret mode stands in for the TPU backend on the CPU mesh)."""
-    import importlib
-    from xcontour_tpu import config
-    import xcontour_tpu.kernels.hist_pallas as hk
-    lk = importlib.import_module("xcontour_tpu.kernels.lwa_pallas")
+    """jax.grad flows through the GPU kernel path: the custom VJP in
+    diagnostics/lwa.py differentiates the XLA lin form, so the
+    kernel-forward gradient must equal the pure-XLA gradient (interpret
+    mode stands in for the GPU on the CPU mesh)."""
+    from xcontour_tpu.kernels import lwa_pallas as lk
 
     Ny, Nx = 16, 32
     lat = np.linspace(-70, 70, Ny)
@@ -91,19 +88,13 @@ def test_pallas_path_adjoint_matches_xla(rng, monkeypatch):
     l_xla = float(loss(v))
     g_xla = np.asarray(jax.grad(loss)(v))
 
-    orig_h = hk.histogram_pallas_multi
-    monkeypatch.setattr(hk, "histogram_pallas_multi",
-                        lambda *a, **k: orig_h(*a, interpret=True, **k))
-    orig_l = lk.lwa_pallas
-    monkeypatch.setattr(lk, "lwa_pallas",
-                        lambda *a, **k: orig_l(*a, interpret=True, **k))
-    config.set_use_pallas(True)
-    try:
-        g_pal = np.asarray(jax.grad(loss)(v))
-        # the forward itself must also agree (f64 interpret parity)
-        np.testing.assert_allclose(float(loss(v)), l_xla, rtol=1e-10)
-    finally:
-        config.set_use_pallas(None)
+    orig = lk.lwa_lin_pallas
+    monkeypatch.setattr(lk, "lwa_lin_pallas",
+                        lambda *a, **k: orig(*a, interpret=True, **k))
+    monkeypatch.setattr(_lwa, "_lin_kernel", lambda: True)
+    g_pal = np.asarray(jax.grad(loss)(v))
+    # the forward itself must also agree (f64 interpret parity)
+    np.testing.assert_allclose(float(loss(v)), l_xla, rtol=1e-10)
     assert np.isfinite(g_pal).all()
     # f64 roundoff from different summation orders scales with the field
     np.testing.assert_allclose(g_pal, g_xla, rtol=1e-8,
@@ -333,53 +324,6 @@ def test_contour_length_gradients_pipeline_levels(rng):
     gn = np.asarray(jax.grad(loss_nan_level)(jnp.asarray(data)))
     assert np.isfinite(gn).all()
     assert np.abs(gn).max() > 0
-
-
-def test_length_pallas_path_grad_matches_xla(rng, monkeypatch):
-    """grad through the Pallas length kernels (global + batched-window)
-    equals the XLA-path gradient (custom VJPs over the XLA twins;
-    interpret mode stands in for the TPU backend)."""
-    import importlib
-    from xcontour_tpu import config
-    from xcontour_tpu.diagnostics.length import contour_lengths
-    from xcontour_tpu.diagnostics.local_length import local_contour_lengths
-    lk = importlib.import_module("xcontour_tpu.kernels.length_pallas")
-
-    Ny, Nx = 16, 24
-    lat = np.linspace(-60.0, 60.0, Ny)
-    lon = np.linspace(0.0, 345.0, Nx)
-    data = jnp.asarray(np.sin(np.deg2rad(lat))[:, None]
-                       + 0.3 * rng.standard_normal((Ny, Nx)))
-    ctr = jnp.linspace(-0.8, 0.8, 7)
-
-    def loss_g(d):
-        return jnp.nansum(contour_lengths(d[None], ctr, jnp.asarray(lat),
-                                          jnp.asarray(lon), latlon=True))
-
-    def loss_w(d):
-        L, _, _ = local_contour_lengths(d, jnp.asarray(lat), jnp.asarray(lon),
-                                        window=7, stride=4, latlon=True)
-        return jnp.nansum(L)
-
-    g_xla = np.asarray(jax.grad(loss_g)(data))
-    w_xla = np.asarray(jax.grad(loss_w)(data))
-
-    orig_c = lk.contour_lengths_pallas
-    monkeypatch.setattr(lk, "contour_lengths_pallas",
-                        lambda *a, **k: orig_c(*a, interpret=True, **k))
-    orig_l = lk.local_lengths_pallas
-    monkeypatch.setattr(lk, "local_lengths_pallas",
-                        lambda *a, **k: orig_l(*a, interpret=True, **k))
-    config.set_use_pallas(True)
-    try:
-        g_pal = np.asarray(jax.grad(loss_g)(data))
-        w_pal = np.asarray(jax.grad(loss_w)(data))
-    finally:
-        config.set_use_pallas(None)
-    np.testing.assert_allclose(g_pal, g_xla, rtol=1e-8,
-                               atol=1e-12 * np.abs(g_xla).max())
-    np.testing.assert_allclose(w_pal, w_xla, rtol=1e-8,
-                               atol=1e-12 * np.abs(w_xla).max())
 
 
 def test_keff_pipeline_adjoint_matches_finite_differences(rng):

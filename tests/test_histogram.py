@@ -66,43 +66,39 @@ def test_f32_accuracy_on_real_sizes(rng):
     np.testing.assert_allclose(np.asarray(got, np.float64), want, rtol=2e-5)
 
 
-def test_cdf_analytic_weight_cotangent_matches_autodiff(rng):
-    """The gather-free backward of the Pallas CDF (ops/histogram.py
-    _cdf_wf_cotangent) equals jax.vjp of the XLA twin exactly — including
-    the adversarial lanes where the closed form could diverge: values tied
-    to edges, the inclusive top edge, out-of-range and NaN values, NaN
-    weights, and duplicate (zero-width) edges from a constant tracer."""
+def test_cdf_multi_weight_cotangent_matches_single_channel(rng):
+    """The shared-digitize multi-channel CDF differentiates like the
+    single-channel CDFs it replaces: equal weight cotangents on lanes with
+    values tied to bins, out-of-range values, NaN values and NaN weights,
+    and an a.e.-zero value cotangent through the integer digitize."""
     import jax
     import jax.numpy as jnp
-    from xcontour_tpu.ops.histogram import _edges_cdf_xla, _cdf_wf_cotangent
+    from xcontour_tpu.ops.histogram import weighted_cdf, weighted_cdf_multi
 
-    B, C, G, N = 3, 2, 64, 9
-    for trial in range(6):
-        v = rng.normal(size=(B, G))
-        edges = np.sort(rng.normal(size=(B, N + 1)), axis=-1)
-        if trial == 1:          # ties: put values exactly on edges
-            v[:, :N + 1] = edges
-        if trial == 2:          # out-of-range lanes both sides
-            v[:, 0] = edges[:, 0] - 5.0
-            v[:, 1] = edges[:, -1] + 5.0
-            v[:, 2] = edges[:, -1]            # inclusive top edge
-        if trial == 3:          # NaN values
-            v[:, ::7] = np.nan
-        if trial == 5:          # duplicate edges (constant tracer)
-            edges[0, :] = 1.0
-            v[0, :4] = 1.0
-        w = rng.uniform(0.1, 2.0, size=(B, C, G))
-        if trial == 4:          # NaN weights
-            w[:, :, ::5] = np.nan
-        vf, ef, wf = jnp.asarray(v), jnp.asarray(edges), jnp.asarray(w)
-        g = jnp.asarray(rng.normal(size=(B, C, N)))
+    v = rng.normal(size=(3, 8, 8))
+    bins = np.linspace(-1.5, 1.5, 9)
+    v[0, 0, :4] = bins[:4]                 # ties on bin edges
+    v[1, 0, 0], v[1, 0, 1] = -5.0, 5.0     # out of range both sides
+    v[2, ::3, 2] = np.nan
+    w0 = rng.uniform(0.1, 2.0, size=(3, 8, 8))
+    w1 = rng.uniform(0.1, 2.0, size=(3, 8, 8))
+    w1[:, 1, ::5] = np.nan
+    g = jnp.asarray(rng.normal(size=(2, 3, 9)))
+    vj, bj = jnp.asarray(v), jnp.asarray(bins)
 
-        _, vjp = jax.vjp(_edges_cdf_xla, vf, ef, wf)
-        gv_ref, ge_ref, gw_ref = vjp(g)
-        gw = _cdf_wf_cotangent(vf, ef, wf, g)
-        np.testing.assert_allclose(np.asarray(gw), np.asarray(gw_ref),
-                                   rtol=1e-12, atol=1e-12,
-                                   err_msg=f"trial {trial}")
-        # the twin's value/edge cotangents are structurally zero
-        assert not np.asarray(gv_ref).any()
-        assert not np.asarray(ge_ref).any()
+    def multi(vv, a, b):
+        c0, c1 = weighted_cdf_multi(vv, bj, [a, b], True)
+        return jnp.sum(c0 * g[0]) + jnp.sum(c1 * g[1])
+
+    def single(vv, a, b):
+        return (jnp.sum(weighted_cdf(vv, bj, a, True) * g[0])
+                + jnp.sum(weighted_cdf(vv, bj, b, True) * g[1]))
+
+    got = jax.grad(multi, argnums=(0, 1, 2))(vj, jnp.asarray(w0),
+                                             jnp.asarray(w1))
+    want = jax.grad(single, argnums=(0, 1, 2))(vj, jnp.asarray(w0),
+                                               jnp.asarray(w1))
+    assert not np.asarray(got[0]).any()
+    for a, b in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-12,
+                                   atol=1e-12)

@@ -41,8 +41,8 @@ def test_find_contour_circle_closed():
     np.testing.assert_allclose(L, 2 * np.pi * 0.6, rtol=2e-3)
 
 
-def test_polyline_total_matches_tpu_kernel(vorticity):
-    """Traversal-based total length == the traversal-free TPU kernel —
+def test_polyline_total_matches_device_lengths(vorticity):
+    """Traversal-based total length == the traversal-free device kernel —
     the two implementations share only the per-cell rule definitions."""
     lat, lon, vor = vorticity
     for level in (4e-5, 7e-5):
@@ -111,7 +111,7 @@ def test_legacy_contour_length_signature(vorticity):
                                                np.arange(lon.size), lon)],
                                latlon=True) for s in segs)
     np.testing.assert_allclose(legacy, newer, rtol=1e-12)
-    # and agree with the traversal-free TPU kernel total at that level
+    # and agree with the traversal-free device kernel total at that level
     kernel = float(np.asarray(contour_lengths(
         jnp.asarray(vor), jnp.asarray([level]), jnp.asarray(lat),
         jnp.asarray(lon), latlon=True))[0])

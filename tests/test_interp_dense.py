@@ -1,8 +1,7 @@
 """Edge-case pins for the dense-compare 1-D interpolation (ops/interp.py).
 
 interp1d's small-table path replaces vmapped jnp.interp with count-compares
-plus where-guarded one-hot contractions (TPU gathers cost ~60x the compares
-at pipeline shapes).  These tests pin exact np.interp agreement on every
+plus where-guarded one-hot contractions (no gathers).  These tests pin exact np.interp agreement on every
 edge the rewrite could plausibly break: exact abscissa hits, duplicate
 (zero-width) intervals, out-of-range clamping, NaN queries, NaN table
 entries, decreasing abscissae, and the 'nan' extrapolation mode.

@@ -63,34 +63,30 @@ def test_local_length_ratio_zonal_field():
 
 
 def test_local_length_pallas_window_batch_parity(vorticity):
-    """The batched-window Pallas path (all windows through the length kernel
-    as one batch with per-window coordinate patches) matches the XLA
-    dynamic-slice path, interpret mode on CPU."""
-    import importlib
-    from xcontour_tpu import config
-    from xcontour_tpu.diagnostics.local_length import local_contour_lengths
-    lk = importlib.import_module("xcontour_tpu.kernels.length_pallas")
+    """Each window of the batched evaluation (window columns vmapped, rows
+    through lax.map) equals the global contour-length kernel run on that
+    window's own patch at the window level."""
+    from xcontour_tpu.diagnostics.length import contour_lengths
     lat, lon, vor = vorticity
     data = jnp.asarray(vor[::4, ::4], jnp.float64)      # 64 x 128
     ydef = jnp.asarray(lat[::4], jnp.float64)
     xdef = jnp.asarray(lon[::4], jnp.float64)
+    window, stride = 33, 8
 
-    want, cy, cx = local_contour_lengths(data, ydef, xdef, window=33,
-                                         stride=8, latlon=True)
-    orig = lk.local_lengths_pallas
-    lk.local_lengths_pallas = lambda *a, **k: orig(
-        *a, interpret=True, **{kk: v for kk, v in k.items()
-                               if kk != "interpret"})
-    config.set_use_pallas(True)
-    try:
-        got, gy, gx = local_contour_lengths(data, ydef, xdef, window=33,
-                                            stride=8, latlon=True)
-    finally:
-        config.set_use_pallas(None)
-        lk.local_lengths_pallas = orig
-    np.testing.assert_allclose(np.asarray(gy), np.asarray(cy))
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                               rtol=1e-9, equal_nan=True)
+    got, _, _ = local_contour_lengths(data, ydef, xdef, window=window,
+                                      stride=stride, latlon=True)
+    levels, oy, ox = rolling_mean(data, window, stride)
+    patches = jnp.stack([jnp.stack([data[i:i + window, j:j + window]
+                                    for j in np.asarray(ox)])
+                         for i in np.asarray(oy)])
+    want = np.empty(got.shape)
+    for a, i in enumerate(np.asarray(oy)):
+        for b, j in enumerate(np.asarray(ox)):
+            want[a, b] = float(contour_lengths(
+                patches[a, b], levels[a, b][None], ydef[i:i + window],
+                xdef[j:j + window], latlon=True)[0])
+    np.testing.assert_allclose(np.asarray(got), want, rtol=1e-9,
+                               equal_nan=True)
 
 
 def test_rolling_mean_f32_offset_field(rng):

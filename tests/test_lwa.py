@@ -204,13 +204,12 @@ def test_unknown_method_raises():
 @pytest.mark.parametrize("method", ["lin", "dense", "fast"])
 def test_method_matrix_through_pallas_dispatch(rng, monkeypatch, variant2,
                                                method):
-    """Every (method, variant) cell of the dispatch table routes through the
-    TPU (Pallas) backend to the same answer as the XLA backend — interpret
-    mode stands in for the hardware (method='fast' is sort-based and has no
-    Pallas form; it must be backend-invariant)."""
-    import importlib
-    from xcontour_tpu import config
-    lk = importlib.import_module("xcontour_tpu.kernels.lwa_pallas")
+    """Every (method, variant) cell of the dispatch table gives the same
+    answer when 'lin' is routed to the Pallas kernel as on the CPU path —
+    interpret mode stands in for the GPU.  Only variant-1 'lin' has a
+    kernel; the other cells must be invariant to the routing."""
+    from xcontour_tpu.diagnostics import lwa as lwa_mod
+    from xcontour_tpu.kernels import lwa_pallas as lk
 
     Ny, Nx = 20, 16
     ydef = jnp.asarray(np.linspace(-60.0, 60.0, Ny))
@@ -221,13 +220,10 @@ def test_method_matrix_through_pallas_dispatch(rng, monkeypatch, variant2,
 
     want = fn(q, Q, dA, ydef, increase=True, part="all", method=method)
 
-    orig = lk.lwa_pallas
-    monkeypatch.setattr(lk, "lwa_pallas",
+    orig = lk.lwa_lin_pallas
+    monkeypatch.setattr(lk, "lwa_lin_pallas",
                         lambda *a, **k: orig(*a, interpret=True, **k))
-    config.set_use_pallas(True)
-    try:
-        got = fn(q, Q, dA, ydef, increase=True, part="all", method=method)
-    finally:
-        config.set_use_pallas(None)
+    monkeypatch.setattr(lwa_mod, "_lin_kernel", lambda: True)
+    got = fn(q, Q, dA, ydef, increase=True, part="all", method=method)
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                rtol=1e-9, atol=1e-9)

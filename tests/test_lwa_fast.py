@@ -71,17 +71,23 @@ def test_fast_nan_profile_rows_are_zero(rng, variant2):
 
 @pytest.mark.parametrize("pairwise", [False, True])
 def test_pallas_nan_profile_rows_are_zero(rng, pairwise):
-    """NaN profile rows integrate to 0 in BOTH Pallas kernel families —
-    the reference's nansum drops the all-NaN qe products (the pairwise
-    kernel once leaked the NaN into its row sums)."""
-    from xcontour_tpu.kernels.lwa_pallas import lwa_pallas
+    """NaN profile rows integrate to 0 on both the lin kernel path and the
+    pairwise path — the reference's nansum drops the all-NaN qe products."""
+    from xcontour_tpu.diagnostics import lwa as lwa_mod
+    from xcontour_tpu.kernels.lwa_pallas import lwa_lin_pallas
     B, Ny, Nx = 2, 16, 128
     q = jnp.asarray(rng.standard_normal((B, Ny, Nx)), jnp.float32)
     W = jnp.asarray(rng.uniform(0.5, 1.5, (Ny, Nx)), jnp.float32)
     Q = jnp.sort(jnp.asarray(rng.standard_normal((B, Ny)), jnp.float32), -1)
     Q = Q.at[0, 3].set(jnp.nan).at[1, 0].set(jnp.nan)
-    out = np.asarray(lwa_pallas(q, Q, W, increase=True, pairwise=pairwise,
-                                interpret=True))
+    if pairwise:
+        out = lwa_mod._lwa_dense_xla(q, Q, W, jnp.linspace(-60.0, 60.0, Ny),
+                                     increase=True, part="all",
+                                     variant2=False, chunk=8)
+    else:
+        qk, Qc, _, E = lwa_mod._lin_v1_terms(q, Q, W, True)
+        out = lwa_lin_pallas(qk, Qc, W, E, increase=True, interpret=True)
+    out = np.asarray(out)
     assert (out[0, 3] == 0).all() and (out[1, 0] == 0).all()
     assert np.isfinite(out).all()
 
@@ -152,7 +158,7 @@ def test_auto_dispatch_uses_fast_for_tall_grids(rng):
 @pytest.mark.parametrize("variant2", [False, True])
 @pytest.mark.parametrize("increase", [True, False])
 def test_lin_xla_matches_oracle(rng, variant2, increase):
-    """The XLA twin of the linearized Pallas kernels (method='lin' off-TPU)
+    """The XLA form of the linearized LWA (method='lin' on the CPU)
     against the float64 oracle, with NaNs in tracer, weight and profile."""
     from xcontour_tpu.diagnostics.lwa import _lwa_lin_xla
     q, Q, W = _case(rng)
@@ -256,7 +262,7 @@ def test_default_path_noise_floor_policy(rng, vorticity):
     got_dense = np.asarray(lwa_mod._lwa_impl(
         q32, Q32, jnp.asarray(dA, jnp.float32), jnp.asarray(lat, jnp.float32),
         increase=True, part="all", chunk=16, weight=None,
-        method="dense", use_pallas=False))[0]
+        method="dense", kernel=False))[0]
     err_dense = np.nanmax(np.abs(got_dense - want)) / scale
     assert err_dense < 5e-6      # 'dense' keeps reference-order ~1e-6 f32
     # and the documented ordering: dense is the accuracy opt-out

@@ -6,13 +6,14 @@ eyeball-only, so the contract here is "the same figure composes from our
 array outputs".  Runs on the Agg backend — no display needed.
 """
 
-import matplotlib
+import pytest
 
+# matplotlib is optional (the package never imports it unless viz is used)
+matplotlib = pytest.importorskip("matplotlib")
 matplotlib.use("Agg")
 
 import matplotlib.pyplot as plt  # noqa: E402
 import numpy as np  # noqa: E402
-import pytest  # noqa: E402
 
 from xcontour_tpu import viz  # noqa: E402
 

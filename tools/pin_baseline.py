@@ -21,7 +21,7 @@ import numpy as np  # noqa: E402
 def main():
     passes = int(sys.argv[1]) if len(sys.argv) > 1 else 5
     import jax
-    jax.config.update("jax_platforms", "cpu")   # baselines never touch TPU
+    jax.config.update("jax_platforms", "cpu")   # baselines run on the host CPU
     import bench
 
     lat, lon, vor = bench._load()

@@ -1,7 +1,7 @@
-"""xcontour_tpu — TPU-native contour-coordinate diagnostics.
+"""xcontour_tpu — contour-coordinate diagnostics in JAX.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of
-miniufo/xcontour (reference mounted at /root/reference): conservative
+A from-scratch JAX framework (XLA, and a Pallas kernel on the GPU) with the
+capabilities of miniufo/xcontour: conservative
 rearrangement of quasi-conservative tracers into contour/equivalent-latitude
 coordinates, and the diagnostics built on it — effective diffusivity (Nakamura
 1996), local finite-amplitude wave activity (Huang-Nakamura 2016), local APE

@@ -646,6 +646,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                   f"dtype={a.dtype}")
         return 0
 
+    from .config import enable_compile_cache
+    enable_compile_cache()
     if args.f64:
         import jax
         jax.config.update("jax_enable_x64", True)

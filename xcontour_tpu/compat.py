@@ -4,7 +4,7 @@ The reference (miniufo/xcontour) has no assertion-based tests; its de-facto
 correctness oracle is cross-path parity between the xarray-broadcast and
 xhistogram code paths (reference tests/test_hist.py:132-167).  This module
 re-states those semantics in plain float64 NumPy, *independently* of the JAX
-engine, so the JAX/TPU implementation can be validated against it at tight
+engine, so the JAX implementation can be validated against it at tight
 tolerances.  Each function documents the reference source it mirrors
 (file:line in /root/reference/).
 

@@ -1,10 +1,4 @@
-"""Runtime configuration: kernel backend selection.
-
-Pallas kernels are used automatically when the default JAX backend is a TPU;
-tests and CPU runs use the pure-XLA paths (every Pallas kernel has an
-XLA twin validated against it).  Override with :func:`set_use_pallas` or the
-``XCONTOUR_USE_PALLAS`` environment variable (``1``/``0``).
-"""
+"""Runtime configuration: the LWA 'auto' method policy."""
 
 from __future__ import annotations
 
@@ -12,49 +6,6 @@ import os
 from typing import Optional
 
 import jax
-
-_OVERRIDE: Optional[bool] = None
-
-
-def set_use_pallas(value: Optional[bool]) -> None:
-    """Force Pallas kernels on/off; None restores auto-detection.
-
-    Jitted entry points read this flag at trace time, so a flip that
-    changes the effective backend invalidates every cached trace — the
-    caches are cleared here (cheap relative to the silent alternative:
-    reusing a trace that contains the other backend's kernels)."""
-    global _OVERRIDE
-    old = use_pallas()
-    _OVERRIDE = value
-    if use_pallas() != old:
-        jax.clear_caches()
-
-
-def use_pallas() -> bool:
-    if _OVERRIDE is not None:
-        return _OVERRIDE
-    env = os.environ.get("XCONTOUR_USE_PALLAS")
-    if env is not None:
-        return env not in ("0", "false", "False")
-    try:
-        return jax.default_backend() == "tpu"
-    except Exception:
-        return False
-
-
-import contextlib
-
-
-@contextlib.contextmanager
-def use_pallas_scope(value: Optional[bool]):
-    """Temporarily force Pallas kernels on/off within a block."""
-    prev = _OVERRIDE
-    set_use_pallas(value)
-    try:
-        yield
-    finally:
-        set_use_pallas(prev)
-
 
 _LWA_FAST_OVERRIDE: Optional[bool] = None
 
@@ -65,9 +16,8 @@ def set_lwa_fast(value: Optional[bool]) -> None:
     only); None restores the default (allowed).  Exact path control is the
     ``method`` kwarg on the LWA entry points.
 
-    Clears the jit caches when the effective value changes, for the same
-    reason as :func:`set_use_pallas`: 'auto' resolves at trace time, and a
-    cached trace embeds the previously-resolved path."""
+    Clears the jit caches when the effective value changes: 'auto' resolves
+    at trace time, and a cached trace embeds the previously-resolved path."""
     global _LWA_FAST_OVERRIDE
     old = lwa_fast()
     _LWA_FAST_OVERRIDE = value
@@ -82,3 +32,21 @@ def lwa_fast() -> bool:
     if env is not None:
         return env not in ("0", "false", "False")
     return True
+
+
+def enable_compile_cache() -> str:
+    """Turn on JAX's persistent compilation cache and return its directory.
+
+    ``JAX_COMPILATION_CACHE_DIR``, when set, is used as it is (JAX reads the
+    variable itself).  Otherwise the cache lives in one fixed directory of
+    the checkout, ``.jax_cache`` beside the package (listed in .gitignore),
+    so every later run from the same checkout finds it.  Call it before the
+    first compilation; the entry points (the CLI, bench.py, chip_smoke.py)
+    do."""
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), ".jax_cache")
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path

@@ -133,10 +133,9 @@ def _level_total_length(level, v00, v01, v10, v11, y0, y1, x0, x1,
 
 
 def _lengths_totals_xla(data, ctr, yc, xc, *, latlon: bool, chunk: int):
-    """Raw per-level perimeter totals (..., N) — the XLA form, also the
-    custom-VJP backward of the Pallas kernel (which has no AD rule).  The
-    marching-squares vertex positions are linear interpolations of the
-    corner values, so lengths are genuinely differentiable in the tracer
+    """Raw per-level perimeter totals (..., N), evaluated in chunks of
+    ``chunk`` levels.  The marching-squares vertex positions are linear
+    interpolations of the corner values, so lengths are genuinely differentiable in the tracer
     (a.e.; the case classification is piecewise constant)."""
     v00 = data[..., :-1, :-1]
     v01 = data[..., :-1, 1:]
@@ -172,31 +171,6 @@ def _lengths_totals_xla(data, ctr, yc, xc, *, latlon: bool, chunk: int):
     return jnp.moveaxis(totals, 0, -1)                         # (..., N)
 
 
-def _lengths_pallas_ad(df, cf, yc, xc, *, latlon: bool, chunk: int):
-    """Pallas forward with the XLA twin's VJP (same pattern as the LWA and
-    CDF kernels): jax.grad through the TPU length path differentiates
-    :func:`_lengths_totals_xla`."""
-    @jax.custom_vjp
-    def f(df, cf, yc, xc):
-        # module-attribute lookup so interpreter-mode monkeypatches apply
-        from ..kernels import length_pallas as lk
-        return lk.contour_lengths_pallas(df, cf, yc, xc, latlon=latlon)
-
-    def fwd(df, cf, yc, xc):
-        return f(df, cf, yc, xc), (df, cf, yc, xc)
-
-    def bwd(res, g):
-        dfr, cfr, ycr, xcr = res
-        _, vjp = jax.vjp(
-            lambda a, b, c, d: _lengths_totals_xla(a, b, c, d, latlon=latlon,
-                                                   chunk=chunk),
-            dfr, cfr, ycr, xcr)
-        return vjp(g)
-
-    f.defvjp(fwd, bwd)
-    return f(df, cf, yc, xc)
-
-
 @partial(jax.jit, static_argnames=("latlon", "chunk"))
 def contour_lengths(data, contours, ydef, xdef, *, latlon: bool = False,
                     Rearth: float = _REARTH, chunk: int = 8):
@@ -214,20 +188,8 @@ def contour_lengths(data, contours, ydef, xdef, *, latlon: bool = False,
 
     batch_shape = data.shape[:-2]
     ctr = jnp.broadcast_to(contours, batch_shape + contours.shape[-1:])
-    N = ctr.shape[-1]
-
-    from .. import config
-    if config.use_pallas():
-        Ny, Nx = data.shape[-2:]
-        df = data.reshape((-1, Ny, Nx))
-        cf = ctr.reshape((-1, N))
-        totals = _lengths_pallas_ad(df, cf, yc, xc, latlon=latlon,
-                                    chunk=chunk)
-        totals = totals.reshape(batch_shape + (N,))
-    else:
-        totals = _lengths_totals_xla(data, ctr, yc, xc, latlon=latlon,
-                                     chunk=chunk)
-
+    totals = _lengths_totals_xla(data, ctr, yc, xc, latlon=latlon,
+                                 chunk=chunk)
     totals = jnp.where(totals == 0.0, jnp.nan, totals)
     return totals * Rearth if latlon else totals
 

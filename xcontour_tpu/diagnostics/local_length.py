@@ -99,8 +99,8 @@ def _one_window_length(panels, W: int, y0, x0, level, latlon: bool):
 
 def _local_totals_xla_raw(data, levels, yc, xc, *, window: int, stride: int,
                           latlon: bool):
-    """(Wy, Wx) raw window totals — the XLA form, also the custom-VJP
-    backward of the Pallas batched-window kernel."""
+    """(Wy, Wx) raw window totals: window columns vmapped, window rows
+    through ``lax.map`` (bounded memory)."""
     ny, nx = data.shape[-2:]
     oy = jnp.arange(0, ny - window + 1, stride)
     ox = jnp.arange(0, nx - window + 1, stride)
@@ -123,56 +123,6 @@ def _window_centers(ydef, xdef, oy, ox, window: int):
     return cy, cx
 
 
-def _local_pallas_ad(data, levels, yc, xc, *, window: int, stride: int,
-                     latlon: bool):
-    """Batched-window Pallas forward with the XLA twin's VJP.
-
-    Forward: extract every (window x window) patch as static strided slices
-    (pure data movement; conv_general_dilated_patches lowers to a real
-    window^2-channel convolution on TPU — measured 110 ms vs ~0.3 ms), then
-    run ALL windows through the Pallas length kernel as one
-    (n_windows, window, window) batch with per-window coordinate patches
-    and a single level each — ~8x faster than per-window dynamic slices.
-    Backward: jax.vjp of :func:`_local_totals_xla_raw` (the kernel has no
-    AD rule)."""
-    @jax.custom_vjp
-    def f(data, levels, yc, xc):
-        ny, nx = data.shape[-2:]
-        oy = jnp.arange(0, ny - window + 1, stride)
-        ox = jnp.arange(0, nx - window + 1, stride)
-        Wy, Wx = oy.shape[0], ox.shape[0]
-        oy_np = range(0, ny - window + 1, stride)
-        ox_np = range(0, nx - window + 1, stride)
-        rows = jnp.stack([data[i:i + window, :] for i in oy_np])
-        patches = jnp.stack([rows[:, :, j:j + window] for j in ox_np],
-                            axis=1).reshape(Wy * Wx, window, window)
-        ywin = yc[oy[:, None] + jnp.arange(window)[None, :]]      # (Wy, w)
-        xwin = xc[ox[:, None] + jnp.arange(window)[None, :]]      # (Wx, w)
-        ywin = jnp.broadcast_to(ywin[:, None, :], (Wy, Wx, window)
-                                ).reshape(Wy * Wx, window)
-        xwin = jnp.broadcast_to(xwin[None, :, :], (Wy, Wx, window)
-                                ).reshape(Wy * Wx, window)
-        from ..kernels import length_pallas as lk
-        lv = levels.reshape(Wy * Wx)
-        totals = lk.local_lengths_pallas(patches, lv, ywin, xwin,
-                                         latlon=latlon)
-        return totals.reshape(Wy, Wx)
-
-    def fwd(data, levels, yc, xc):
-        return f(data, levels, yc, xc), (data, levels, yc, xc)
-
-    def bwd(res, g):
-        dr, lr, ycr, xcr = res
-        _, vjp = jax.vjp(
-            lambda a, b, c, d: _local_totals_xla_raw(
-                a, b, c, d, window=window, stride=stride, latlon=latlon),
-            dr, lr, ycr, xcr)
-        return vjp(g)
-
-    f.defvjp(fwd, bwd)
-    return f(data, levels, yc, xc)
-
-
 @partial(jax.jit, static_argnames=("window", "stride", "latlon", "min_count"))
 def local_contour_lengths(data: jax.Array, ydef: jax.Array, xdef: jax.Array, *,
                           window: int = 101, stride: int = 10,
@@ -193,17 +143,6 @@ def local_contour_lengths(data: jax.Array, ydef: jax.Array, xdef: jax.Array, *,
     means, oy, ox = rolling_mean(data, window, stride, min_count)
     if levels is None:
         levels = means
-
-    from .. import config
-    if config.use_pallas():
-        totals = _local_pallas_ad(data, levels, yc, xc, window=window,
-                                  stride=stride, latlon=latlon)
-        lengths = jnp.where(jnp.isnan(levels) | (totals == 0.0),
-                            jnp.nan, totals)
-        if latlon:
-            lengths = lengths * Rearth
-        cy, cx = _window_centers(ydef, xdef, oy, ox, window)
-        return lengths, cy, cx
 
     totals = _local_totals_xla_raw(data, levels, yc, xc, window=window,
                                    stride=stride, latlon=latlon)

@@ -21,10 +21,10 @@ i.e. a reverse cumsum along the equivalent dim, a per-column sorted-prefix
 lookup, and a total: O(Ny*Nx*log Ny) instead of O(Ny^2*Nx).  The result is
 identical to the pairwise form up to float summation order (verified exactly
 in float64, see tests/test_lwa_fast.py).  W+/W- part selections multiply the
-two indicators and stay on the pairwise paths.  In practice the dense
-VMEM-resident Pallas kernel still wins below Ny ~ 6000 (see
-_FAST_NY_CROSSOVER), so 'auto' reserves the linearized path for tall
-equivalent dims; method='fast' forces it.
+two indicators and stay on the pairwise paths.  The same identity with the
+c-term summed directly (O(Ny^2*Nx) at 4 ops per pair, 'lin') is faster
+below a crossover height (see _FAST_NY_CROSSOVER), so 'auto' reserves the
+sort path for tall equivalent dims; method='fast' forces it.
 
 Conventions: fields are (..., Ny, Nx) with the equivalent dim at axis -2;
 sorted profiles Q are (..., Ny).
@@ -63,39 +63,10 @@ def _part_select(mask3, part: str, increase: bool):
     return jnp.where(keep, mask3, jnp.nan)
 
 
-def _pallas_ok(q) -> bool:
-    """Use the Pallas kernel when on TPU and the narrowest (Ny x 128) column
-    panel fits the kernel's VMEM budget (it blocks along X for wide grids).
-
-    Taller grids deliberately take the XLA lin twin, NOT lwa_pallas's
-    y-blocked path: that path is the 7-op PAIRWISE kernel (the linearized
-    kernels have no y-blocked form), and it measured 3.3x slower than the
-    XLA lin twin on hardware (4x4096x512 f32: 153 vs 46 ms).  Past the
-    sort crossover (_FAST_NY_CROSSOVER) 'fast' takes over anyway."""
-    from .. import config
-    from ..kernels.lwa_pallas import _VMEM_BUDGET
-    Ny = q.shape[-2]
-    return config.use_pallas() and (Ny * 128 * q.dtype.itemsize) <= _VMEM_BUDGET
-
-
-def _lwa_via_pallas(q, Q, W, increase: bool, part: str, variant2: bool,
-                    pairwise: bool = True):
-    from ..kernels.lwa_pallas import lwa_pallas
-    batch = q.shape[:-2]
-    Ny, Nx = q.shape[-2:]
-    qf = q.reshape((-1, Ny, Nx))
-    Qf = jnp.broadcast_to(Q, batch + (Ny,)).reshape((-1, Ny))
-    W = jnp.broadcast_to(W, (Ny, Nx))
-    out = lwa_pallas(qf, Qf, W, increase=increase, part=part,
-                     variant2=variant2, pairwise=pairwise)
-    return out.reshape(batch + (Ny, Nx))
-
-
 def _lwa_dense_xla(q, Q, W, ydef, *, increase: bool, part: str,
                    variant2: bool, chunk: int):
-    """The chunked dense (pairwise 3-valued-mask) XLA form, shared by the
-    off-TPU execution path and the custom-VJP backward of the Pallas
-    forward (the reference summation, core.py:752-793 / 860-890).
+    """The chunked dense (pairwise 3-valued-mask) form: the reference
+    summation, core.py:752-793 / 860-890.
 
     The excluded-cell NaN sentinels (part selection, missing data) are
     substituted by EXACT zeros before the product so the sum equals the
@@ -131,56 +102,15 @@ def _lwa_dense_xla(q, Q, W, ydef, *, increase: bool, part: str,
     return jnp.moveaxis(lwa, 0, -2)
 
 
-def _lwa_pallas_ad(q, Q, W, ydef, *, increase: bool, part: str,
-                   variant2: bool, pairwise: bool, chunk: int):
-    """Pallas forward with the XLA twin's VJP: Pallas calls have no AD
-    rule, so jax.grad through the TPU LWA path differentiates the
-    mathematically-identical XLA form instead (FD-validated on CPU by
-    tests/test_differentiable.py).  The backward matches the forward's
-    algorithm: the linearized twin for the default part='all' path (its
-    VJP is O(Ny·Nx) per surface — differentiating the dense pairwise form
-    here cost ~100x the forward) and the dense twin for the
-    pairwise/part-selected path (part masks don't linearize)."""
-    @jax.custom_vjp
-    def f(q, Q, W, ydef):
-        return _lwa_via_pallas(q, Q, W, increase, part, variant2,
-                               pairwise=pairwise)
-
-    def fwd(q, Q, W, ydef):
-        return f(q, Q, W, ydef), (q, Q, W, ydef)
-
-    def bwd(res, g):
-        qr, Qr, Wr, yr = res
-        if pairwise:
-            twin = lambda a, b, c, d: _lwa_dense_xla(
-                a, b, c, d, increase=increase, part=part, variant2=variant2,
-                chunk=chunk)
-        else:
-            # full-chunk twin: a single vmapped surface sweep (no lax.map)
-            # lets XLA fuse the O(Ny^2 Nx) reduce in the backward instead of
-            # serializing Ny/chunk scan steps — measured 13.8 -> 5.9 ms for
-            # the 32x256x512 backward; the broadcasts stay fused, nothing
-            # (chunk, B, Ny, Nx)-sized is materialized
-            twin = lambda a, b, c, d: _lwa_lin_xla(
-                a, b, c, increase, variant2, a.shape[-2])
-        _, vjp = jax.vjp(twin, qr, Qr, Wr, yr)
-        return vjp(g)
-
-    f.defvjp(fwd, bwd)
-    return f(q, Q, W, ydef)
-
-
-def _lwa_lin_xla(q, Q, W, increase: bool, variant2: bool, chunk: int):
-    """XLA twin of the linearized Pallas kernels (kernels/lwa_pallas.py
-    _kernel_lin[2]): the E t-term from the telescoping recurrence + a
-    chunked 4-op c-term reduce per surface.  Same results, same f32 noise
-    profile; used off-TPU and as the interpreter-free parity anchor."""
+def _lin_centred(q, Q, W):
+    """Flatten the batch and centre tracer and profile by the profile
+    midpoint (exact: the mask depends only on sign(q - Q_j)), which keeps
+    the R/E cancellation of the linearised form small in float32."""
     batch = q.shape[:-2]
     Ny, Nx = q.shape[-2:]
     qf = q.reshape((-1, Ny, Nx))
     Qf = jnp.broadcast_to(Q, batch + (Ny,)).reshape((-1, Ny))
     Wb = jnp.broadcast_to(W, (Ny, Nx))
-
     validQ = jnp.isfinite(Qf)
     c0 = jnp.where(jnp.any(validQ, -1),
                    jnp.nanmean(jnp.where(validQ, Qf, jnp.nan), -1), 0.0)
@@ -188,10 +118,51 @@ def _lwa_lin_xla(q, Q, W, increase: bool, variant2: bool, chunk: int):
     qc = qf - c0[:, None, None]
     Qc = Qf - c0[:, None]
     Qt = jnp.where(validQ, Qc, 0.0)
+    return qf, Wb, validQ, qc, Qc, Qt
+
+
+def _lin_v1_terms(q, Q, W, increase: bool):
+    """Operands of the variant-1 c-term and its t-term prefix.
+
+    Returns (qk, Qc, Wv, E), all batch-flattened: qk is the centred tracer
+    with invalid cells at the clamping sentinel (+inf for ``increase``, so
+    min(qk - Q_j, 0) = 0; -inf otherwise), Wv the weight zeroed on invalid
+    cells, and E[j] = -sum_{y<j} (q - Q_j) W from the telescoping recurrence
+
+        E[j+1] = E[j] + (Q~[j+1] - q~[j]) W[j] + (Q~[j+1] - Q~[j]) P0[j]
+
+    whose increments are deviation-scaled (no eps*total float32 loss).  The
+    telescoping makes E[j] exact for every valid row regardless of how NaN
+    entries of Q~/q~ were sanitised.  Like the 'fast' path, the lin family
+    treats +/-inf cells as invalid; only the dense path propagates inf like
+    the reference's nansum."""
+    qf, Wb, _, qc, Qc, Qt = _lin_centred(q, Q, W)
+    B, Ny, Nx = qf.shape
     sent = jnp.asarray(jnp.inf if increase else -jnp.inf, q.dtype)
-    B = qf.shape[0]
+    valid = jnp.isfinite(qf) & jnp.isfinite(Wb)
+    qk = jnp.where(valid, qc, sent)
+    Wv = jnp.where(valid, Wb, 0.0)
+    qt = jnp.where(valid, qc, 0.0)
+    P0 = jax.lax.cumsum(Wv, axis=1) - Wv
+    inc = ((Qt[:, 1:, None] - qt[:, :-1]) * Wv[:, :-1]
+           + (Qt[:, 1:] - Qt[:, :-1])[..., None] * P0[:, :-1])
+    E = jnp.concatenate(
+        [jnp.zeros((B, 1, Nx), q.dtype), jnp.cumsum(inc, axis=1)], axis=1)
+    return qk, Qc, Wv, E
+
+
+def _lwa_lin_xla(q, Q, W, increase: bool, variant2: bool, chunk: int):
+    """Linearised LWA (module docstring) in XLA: the E t-term from the
+    telescoping recurrence plus a chunked 4-op c-term reduce per surface.
+    The CPU path, the variant-2 path, and the function whose VJP the GPU
+    kernel path uses."""
+    batch = q.shape[:-2]
+    Ny, Nx = q.shape[-2:]
 
     if variant2:
+        qf, Wb, validQ, qc, Qc, Qt = _lin_centred(q, Q, W)
+        B = qf.shape[0]
+        sent = jnp.asarray(jnp.inf if increase else -jnp.inf, q.dtype)
         Qs = jnp.where(validQ, Qc, sent)[:, :, None]
         Wv = jnp.where(validQ[:, :, None] & jnp.isfinite(Wb), Wb, 0.0)
         P0 = jax.lax.cumsum(Wv, axis=1) - Wv
@@ -209,15 +180,7 @@ def _lwa_lin_xla(q, Q, W, increase: bool, variant2: bool, chunk: int):
             row = -(R + jnp.take(E, j, axis=1))
             return jnp.where(jnp.isfinite(qrow), row, 0.0)
     else:
-        valid = jnp.isfinite(qf) & jnp.isfinite(Wb)
-        qk = jnp.where(valid, qc, sent)
-        Wv = jnp.where(valid, Wb, 0.0)
-        qt = jnp.where(valid, qc, 0.0)
-        P0 = jax.lax.cumsum(Wv, axis=1) - Wv
-        inc = ((Qt[:, 1:, None] - qt[:, :-1]) * Wv[:, :-1]
-               + (Qt[:, 1:] - Qt[:, :-1])[..., None] * P0[:, :-1])
-        E = jnp.concatenate(
-            [jnp.zeros((B, 1, Nx), q.dtype), jnp.cumsum(inc, axis=1)], axis=1)
+        qk, Qc, Wv, E = _lin_v1_terms(q, Q, W, increase)
 
         def one(j):
             Qj = jnp.take(Qc, j, axis=1)                      # (B,)
@@ -229,6 +192,45 @@ def _lwa_lin_xla(q, Q, W, increase: bool, variant2: bool, chunk: int):
 
     lwa = _chunked_over_surfaces(one, Ny, chunk)              # (Ny, B, Nx)
     return jnp.moveaxis(lwa, 0, 1).reshape(batch + (Ny, Nx))
+
+
+def _lin_kernel() -> bool:
+    """The variant-1 lin path runs the Pallas (Triton) kernel on the GPU
+    and :func:`_lwa_lin_xla` on the CPU."""
+    return jax.default_backend() == "gpu"
+
+
+def _lwa_lin_kernel(q, Q, W, increase: bool, chunk: int = 16):
+    """Variant-1 lin LWA with the c-term in kernels/lwa_pallas.py.
+
+    The kernel has no AD rule, so the VJP differentiates
+    :func:`_lwa_lin_xla` over surface chunks of ``chunk``.  Not the
+    full-chunk form (one vmapped sweep over all Ny surfaces): on the H100
+    XLA spent over 8 minutes compiling its backward reduce at 4x256x512,
+    against 12 s for the chunked one (PERF.md)."""
+    from ..kernels import lwa_pallas
+
+    @jax.custom_vjp
+    def f(q, Q, W):
+        batch = q.shape[:-2]
+        qk, Qc, _, E = _lin_v1_terms(q, Q, W, increase)
+        Wb = jnp.broadcast_to(W, q.shape[-2:])
+        # invalid tracer cells already clamp to zero through the sentinel,
+        # so one weight plane serves every batch element
+        Wz = jnp.where(jnp.isfinite(Wb), Wb, 0.0)
+        out = lwa_pallas.lwa_lin_pallas(qk, Qc, Wz, E, increase=increase)
+        return out.reshape(batch + q.shape[-2:])
+
+    def fwd(q, Q, W):
+        return f(q, Q, W), (q, Q, W)
+
+    def bwd(res, g):
+        _, vjp = jax.vjp(lambda a, b, c: _lwa_lin_xla(
+            a, b, c, increase, False, chunk), *res)
+        return vjp(g)
+
+    f.defvjp(fwd, bwd)
+    return f(q, Q, W)
 
 
 def _chunked_over_surfaces(fn, Ny: int, chunk: int):
@@ -252,10 +254,7 @@ def _cdf_at(values, w0, w1, queries):
     which a tied entry contributes  w1 - query*w0 = (value - query)*w  = 0,
     so the ambiguity cancels EXACTLY.
 
-    Built from two co-sorts and static slices only: TPU gathers along the
-    sorted axis cost ~20x more than the sorts themselves (measured: 62 ms
-    take_along_axis vs 0.2-1 ms lax.sort at (32, 512, 256) f32), and
-    jnp.searchsorted is as bad (53 ms) — so positions are never
+    Built from two co-sorts and static slices only, so positions are never
     materialized.  Merged cumsum trick: queries carry zero weight, so after
     one merged sort the inclusive prefix sum AT each query slot is its CDF;
     a second sort on a position key (queries first, in caller order) brings
@@ -386,27 +385,24 @@ def _lwa_via_fast(q, Q, W, increase: bool, variant2: bool):
     return out.reshape(batch + (Ny, Nx))
 
 
-# Measured on v5e (bench hardware, 4xNyx512 f32): the dense VMEM-resident
-# linearized Pallas kernel beats the O(Ny*Nx*log^2 Ny) sort/merge path far
-# longer than its O(Ny^2*Nx) op count suggests — its effective rate IMPROVES
-# with Ny as the fixed prep passes amortize, while XLA's bitonic sort pays
-# ~log^2 Ny high-constant passes.  Hardware ladder (lin vs fast, ms):
-# Ny=2048 11.8/14.2, 3072 26.2/33.0, 4096 29.9/37.2, 6144 66.2/63.2,
-# 8192 123.3/81.4 — the sort path first wins at Ny ~ 6k.  (The round-2
-# value 1536 was extrapolated from 256/721-row growth rates and wrong.)
+# 'auto' takes the sort path ('fast') from this height up.  On an H100
+# (4xNyx512 float32, 'lin' through the Pallas kernel; PERF.md) the two tie
+# at Ny=4096 (5.46 vs 5.42 ms) and 'fast' wins at 8192 (12.7 vs 21.4 ms),
+# so the crossover lies between 4096 and 8192.  A finer ladder should place
+# it before the threshold moves (ROADMAP S7).
 _FAST_NY_CROSSOVER = 6144
 
 
 def _resolve_method(method: str, part: str, ny: int) -> str:
     """Pick the execution path at CALL time (outside any jit cache key).
 
-    'lin'   — linearized O(Ny^2) kernels at 4 ops/pair (Pallas on TPU, XLA
-              twin elsewhere); f32 noise floor ~5e-5 of the max (the R and E
-              terms cancel); part='all' only.
+    'lin'   — linearized O(Ny^2) c-term at 4 ops/pair (a Pallas kernel on
+              the GPU, XLA on the CPU); f32 noise floor ~5e-5 of the max
+              (the R and E terms cancel); part='all' only.
     'dense' — pairwise 3-valued-mask kernels, reference summation order
               (f32 ~1e-6); any part.
     'fast'  — sort-merge O(Ny log Ny) XLA path; wins only for tall
-              equivalent dims (measured crossover Ny ~ 6000); part='all'.
+              equivalent dims (crossover _FAST_NY_CROSSOVER); part='all'.
     'auto'  — 'dense' for part selections, 'fast' above the crossover,
               'lin' otherwise.  config.set_lwa_fast(False) removes 'fast'
               from auto selection."""
@@ -427,43 +423,28 @@ def _resolve_method(method: str, part: str, ny: int) -> str:
 
 
 @partial(jax.jit, static_argnames=("increase", "part", "chunk", "method",
-                                   "use_pallas"))
+                                   "kernel"))
 def _lwa_impl(q, Q, dA, ydef, *, increase: bool, part: str, chunk: int,
-              weight, method: str, use_pallas: bool):
+              weight, method: str, kernel: bool):
     wei_dA = dA / jnp.nanmax(dA) * dA if weight is None else weight
     if method == "fast":
         return _lwa_via_fast(q, Q, wei_dA, increase, False)
     if method == "lin":
-        if use_pallas:
-            return _lwa_pallas_ad(q, Q, wei_dA, ydef, increase=increase,
-                                  part=part, variant2=False, pairwise=False,
-                                  chunk=chunk)
+        if kernel:
+            return _lwa_lin_kernel(q, Q, wei_dA, increase, chunk)
         return _lwa_lin_xla(q, Q, wei_dA, increase, False, chunk)
-    if use_pallas:
-        return _lwa_pallas_ad(q, Q, wei_dA, ydef, increase=increase,
-                              part=part, variant2=False, pairwise=True,
-                              chunk=chunk)
     return _lwa_dense_xla(q, Q, wei_dA, ydef, increase=increase, part=part,
                           variant2=False, chunk=chunk)
 
 
-@partial(jax.jit, static_argnames=("increase", "part", "chunk", "method",
-                                   "use_pallas"))
+@partial(jax.jit, static_argnames=("increase", "part", "chunk", "method"))
 def _lwa2_impl(q, Q, dA, ydef, *, increase: bool, part: str, chunk: int,
-               weight, method: str, use_pallas: bool):
+               weight, method: str):
     wei_dA = dA / jnp.nanmax(dA) * dA if weight is None else weight
     if method == "fast":
         return _lwa_via_fast(q, Q, wei_dA, increase, True)
     if method == "lin":
-        if use_pallas:
-            return _lwa_pallas_ad(q, Q, wei_dA, ydef, increase=increase,
-                                  part=part, variant2=True, pairwise=False,
-                                  chunk=chunk)
         return _lwa_lin_xla(q, Q, wei_dA, increase, True, chunk)
-    if use_pallas:
-        return _lwa_pallas_ad(q, Q, wei_dA, ydef, increase=increase,
-                              part=part, variant2=True, pairwise=True,
-                              chunk=chunk)
     return _lwa_dense_xla(q, Q, wei_dA, ydef, increase=increase, part=part,
                           variant2=True, chunk=chunk)
 
@@ -490,12 +471,9 @@ def local_wave_activity(q, Q, dA, ydef, *, increase: bool, part: str = "all",
     """
     part = part.lower()
     method = _resolve_method(method, part, q.shape[-2])
-    # resolved OUTSIDE the jitted impl so the backend choice participates in
-    # the jit cache key (a runtime config/backend flip must not reuse a
-    # trace containing the other backend's kernels)
     return _lwa_impl(q, Q, dA, ydef, increase=increase, part=part,
                      chunk=chunk, weight=weight, method=method,
-                     use_pallas=_pallas_ok(q))
+                     kernel=_lin_kernel())
 
 
 def local_wave_activity2(q, Q, dA, ydef, *, increase: bool, part: str = "all",
@@ -507,8 +485,7 @@ def local_wave_activity2(q, Q, dA, ydef, *, increase: bool, part: str = "all",
     part = part.lower()
     method = _resolve_method(method, part, q.shape[-2])
     return _lwa2_impl(q, Q, dA, ydef, increase=increase, part=part,
-                      chunk=chunk, weight=weight, method=method,
-                      use_pallas=_pallas_ok(q))
+                      chunk=chunk, weight=weight, method=method)
 
 
 def lwa_masks_at(q, Q, dA, ydef, mask_idx, *, increase: bool,

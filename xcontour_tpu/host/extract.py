@@ -16,7 +16,7 @@ tests/test_breaking.py:412-421 and tests/test_clength.py:615-630):
 Extraction runs on the native C++ traversal (csrc/marching.cpp) with a NumPy
 fallback; this path is for *connectivity-aware* analyses (wave breaking,
 contour grouping).  Total perimeter per contour — the only thing the bulk
-pipelines need — runs as the traversal-free TPU kernel in
+pipelines need — runs as the traversal-free device kernel in
 diagnostics/length.py instead.
 """
 

@@ -1,2 +1,1 @@
-from .lwa_pallas import lwa_pallas  # noqa: F401
-from .hist_pallas import histogram_pallas  # noqa: F401
+"""Hand-written GPU kernels (Pallas, Triton route)."""

@@ -1,20 +1,19 @@
-"""Pallas TPU kernel for local finite-amplitude wave activity.
+"""Pallas kernel (Triton route) for the linearised LWA c-term on the GPU.
 
-Why a kernel: the LWA recurrence touches every (surface j, cell) pair —
-O(Ny^2 * Nx) work on O(Ny * Nx) data.  The XLA formulation (chunked vmap over
-j) re-streams the tracer from HBM for every surface: ~Ny * field_size of HBM
-traffic per snapshot (gigabytes per batch), hundreds of times the useful
-footprint.  Here the snapshot block's index map is constant in the surface
-grid dimension, so Mosaic keeps the tracer and weight resident in VMEM across
-all Ny surfaces; each grid step evaluates a tile of 8 surfaces as masked
-multiply-reduces over on-chip data (pure VPU work), and the sorted profile is
-a scalar-prefetch operand read from SMEM.
+For ``part='all'`` the LWA mask linearises (diagnostics/lwa.py docstring):
 
-Semantics are identical to diagnostics/lwa.py (reference core.py:696-905);
-the surface mask uses the index form — for strictly monotone equivalent
-coordinates,  (y >= y_j when increasing | y <= y_j when decreasing)  is
-exactly  (row index >= j)  — so no coordinate array is needed in-kernel.
-NaN tracer cells contribute zero (the reference's nan-skipping integrate).
+    LWA_j(x) = -(R_j(x) + E[j, x]),  R_j(x) = sum_y ext(q(y, x) - Q_j) W(y, x)
+
+with ext = min(., 0) for increasing tracers and max(., 0) otherwise.  E is an
+O(Ny*Nx) prefix the caller builds in XLA; R is the O(Ny^2*Nx) pair sum, and it
+is what this kernel computes.  XLA evaluates it as a ``lax.map`` over surface
+chunks that re-reads the whole field at every step; here each program owns a
+(TJ surfaces x BX columns) accumulator in registers and streams the field once
+down y in (YB, BX) tiles.  Programs share no state, so Ny is a loop bound, not
+a resident block: tall grids need no special path.
+
+The min/max is not bilinear, so the tensor cores cannot help; the kernel is
+bound by FP32 issue (sub, min, fma per pair).
 """
 
 from __future__ import annotations
@@ -24,506 +23,86 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-_TJ = 32  # surfaces per grid step (4 f32 sublane tiles: measured ~7% faster
-# than 8 — longer unrolled bodies give Mosaic more independent chains)
-
-
-def _mask_value(qe, m, increase: bool):
-    """3-valued mask (core.py:759-766) as arithmetic select."""
-    if increase:
-        inner = jnp.where(qe > 0, -1.0, 0.0)
-        return jnp.where(m, jnp.where(qe < 0, 1.0, 0.0), inner)
-    inner = jnp.where(qe < 0, -1.0, 0.0)
-    return jnp.where(m, jnp.where(qe > 0, 1.0, 0.0), inner)
-
-
-def _part_zero(mask, part: str, increase: bool):
-    if part == "all":
-        return mask
-    if part == "upper":
-        keep = mask > 0 if increase else mask < 0
-    else:  # lower
-        keep = mask < 0 if increase else mask > 0
-    return jnp.where(keep, mask, 0.0)
+# Block sizes (powers of two), chosen by a sweep on an H100 at 32x256x512
+# and 4x721x1440 (PERF.md).  With BX = 32 * _NUM_WARPS every thread owns one
+# column, so the y reduction and its TJ surfaces stay in that thread's
+# registers; layouts that split a column across threads ran 3-7x slower.
+_TJ = 32      # surfaces per program
+_BX = 128     # columns per program
+_YB = 8       # rows per loaded tile
+_YK = 16      # tiles per partial sum (two-level accumulation, see _kernel)
+_NUM_WARPS = 4
+_NUM_STAGES = 3
 
 
-def _signed_term(qe, m, mask_inc: bool, part: str, part_inc: bool):
-    """qe * mask(qe, m, mask_inc), the per-cell LWA integrand.
-
-    For part='all' the 3-valued mask never needs materializing: with
-    min(x,0) - x == -max(x,0) exactly in IEEE arithmetic,
-
-        qe*mask = min(qe,0) - [~m]*qe    (mask_inc)
-                = max(qe,0) - [~m]*qe    (not mask_inc)
-
-    which is bit-identical to the select form at ~30% fewer vector ops
-    (measured on the VPU-bound kernel).  Part selections keep the mask form;
-    ``part_inc`` is the ORIGINAL increase flag — for variant2 the mask flips
-    but part selection stays keyed on the original (reference core.py:860-872
-    quirk).
-    """
-    if part == "all":
-        ext = jnp.minimum(qe, 0.0) if mask_inc else jnp.maximum(qe, 0.0)
-        return ext - jnp.where(m, 0.0, qe)
-    return qe * _part_zero(_mask_value(qe, m, mask_inc), part, part_inc)
-
-
-def _cumsum_tree(x, iota):
-    """Inclusive prefix sum along sublanes via log-tree masked rolls —
-    Mosaic has no cumsum lowering; 2*log2(Ny) vector ops per element, paid
-    once per (batch, x-block)."""
-    n = x.shape[0]
-    k = 1
-    while k < n:
-        rolled = pltpu.roll(x, k, 0)
-        x = x + jnp.where(iota >= k, rolled, 0.0)
-        k *= 2
-    return x
-
-
-def _kernel_lin(Qs_ref, q_ref, W_ref, Qc_ref, out_ref, E_ref, qk_ref, Wv_ref,
-                *, increase: bool, ny: int):
-    """part='all' via the exact mask linearization (diagnostics/lwa.py
-    docstring): mask = t + c - 1, so
-
-        LWA_j(x) = -( R_j(x) + E[j,x] )
-
-    with R_j = sum_y min(qe, 0)*W (increase; max for decreasing tracers) —
-    the c-term at 4 vector ops per (surface, cell) pair vs 7 for the
-    masked pairwise form — and E[j,x] = -sum_{y<j} (q - Q_j)*W the t-term.
-
-    Sanitization and E are computed IN-KERNEL at t == 0 of each
-    (batch, x-block) into VMEM scratch: invalid cells become clamping
-    +/-inf sentinels with zero weight, and E follows the telescoping
-    recurrence
-
-        E[j+1] = E[j] + (Q~[j+1] - q~[j])*W[j] + (Q~[j+1] - Q~[j])*P0[j]
-
-    whose increments are deviation-scaled (no eps*total f32 loss; the
-    naive P1 - Q_j*P0 difference measured -32 absolute on a snapshot whose
-    LWA max is 1.9e6).  Fusing the prep avoids ~10 XLA HBM passes per
-    call — measured 40% faster at ERA5 scale (3.9 -> 2.3 ms per
-    4x721x1440), at par at 32x256x512 where the prep is a smaller
-    fraction.  The telescoping makes E[j] exact for every valid row
-    regardless of how NaN entries of Q~/q~ were sanitized; NaN profile
-    rows are zeroed at the end (reference: those surfaces integrate to 0).
-    """
+def _kernel(Q_ref, q_ref, W_ref, E_ref, o_ref, *, ny: int, nx: int,
+            increase: bool, tj: int, bx: int, yb: int, yk: int):
     b = pl.program_id(0)
+    xb = pl.program_id(1)
     t = pl.program_id(2)
+    js = t * tj + jnp.arange(tj)
+    xs = xb * bx + jnp.arange(bx)
+    jm = js < ny
+    xm = xs < nx
+    Qj = plgpu.load(Q_ref.at[b, pl.ds(t * tj, tj)], mask=jm, other=0.0)
 
-    @pl.when(t == 0)
-    def _():
-        qr = q_ref[0]                       # (Ny, nxb) raw centered tracer
-        Wr = W_ref[...]
-        # isfinite, not ~isnan: the lin family (this kernel, _lwa_lin_xla —
-        # which is also this kernel's VJP — and the 'fast' sort path) treats
-        # +/-inf cells as invalid; only the reference-faithful dense/pairwise
-        # paths propagate inf like the reference's nansum
-        valid = jnp.isfinite(qr) & jnp.isfinite(Wr)
-        sent = jnp.asarray(jnp.inf if increase else -jnp.inf, qr.dtype)
-        qk_ref[...] = jnp.where(valid, qr, sent)
-        Wv = jnp.where(valid, Wr, 0.0)
-        Wv_ref[...] = Wv
-        qt = jnp.where(valid, qr, 0.0)
-        Qcol = Qc_ref[0]                    # (Ny, 1) centered, NaN -> 0
-        iota = jax.lax.broadcasted_iota(jnp.int32, (qr.shape[0], 1), 0)
-        Wprev = jnp.where(iota >= 1, pltpu.roll(Wv, 1, 0), 0.0)
-        P0 = _cumsum_tree(Wprev, iota)      # P0[j] = sum_{y<j} Wv
-        qprev = jnp.where(iota >= 1, pltpu.roll(qt, 1, 0), 0.0)
-        Qprev = jnp.where(iota >= 1, pltpu.roll(Qcol, 1, 0), 0.0)
-        inc = ((Qcol - qprev) * Wprev
-               + (Qcol - Qprev) * (P0 - Wprev))  # P0 - Wprev = P0[j-1]
-        inc = jnp.where(iota >= 1, inc, 0.0)
-        E_ref[...] = _cumsum_tree(inc, iota)
+    def tile(i, acc):
+        ys = i * yb + jnp.arange(yb)
+        m = (ys < ny)[:, None] & xm[None, :]
+        # masked cells load W = 0, so they add exactly nothing
+        q = plgpu.load(q_ref.at[b, pl.ds(i * yb, yb), pl.ds(xb * bx, bx)],
+                       mask=m, other=0.0)
+        w = plgpu.load(W_ref.at[pl.ds(i * yb, yb), pl.ds(xb * bx, bx)],
+                       mask=m, other=0.0)
+        qe = q[None, :, :] - Qj[:, None, None]
+        ext = jnp.minimum(qe, 0.0) if increase else jnp.maximum(qe, 0.0)
+        return acc + jnp.sum(ext * w[None, :, :], axis=1)
 
-    def body(jj, _):
-        j = t * _TJ + jj
+    # two-level accumulation: a fresh partial sum over every yk tiles, added
+    # to the total, so float32 rounding grows with yk + Ny/(yb*yk) rather
+    # than Ny/yb (one running sum differed from the XLA form by 2e-3 of the
+    # max at 4x8192x512).  Tiles past Ny in the last block load only zeros.
+    zero = jnp.zeros((tj, bx), o_ref.dtype)
 
-        @pl.when(j < ny)
-        def _():
-            Qj = Qs_ref[b, j]
-            qe = qk_ref[...] - Qj
-            ext = jnp.minimum(qe, 0.0) if increase else jnp.maximum(qe, 0.0)
-            R = jnp.sum(ext * Wv_ref[...], axis=0)
-            row = -(R + E_ref[jj + t * _TJ, :])
-            out_ref[0, jj, :] = jnp.where(jnp.isnan(Qj), 0.0, row)
-        return 0
+    def block(o, acc):
+        return acc + jax.lax.fori_loop(
+            0, yk, lambda i, part: tile(o * yk + i, part), zero)
 
-    jax.lax.fori_loop(0, _TJ, body, 0, unroll=True)
+    R = jax.lax.fori_loop(0, pl.cdiv(pl.cdiv(ny, yb), yk), block, zero)
+    m2 = jm[:, None] & xm[None, :]
+    E = plgpu.load(E_ref.at[b, pl.ds(t * tj, tj), pl.ds(xb * bx, bx)],
+                   mask=m2, other=0.0)
+    # a NaN profile value makes every qe NaN: the reference row is zero
+    row = jnp.where(jnp.isnan(Qj)[:, None], 0.0, -(R + E))
+    plgpu.store(o_ref.at[b, pl.ds(t * tj, tj), pl.ds(xb * bx, bx)], row,
+                mask=m2)
 
 
-def _kernel_lin2(Qs_ref, q_ref, Qt_ref, W_ref, out_ref, E_ref, Wv_ref, *,
-                 increase: bool, ny: int):
-    """Variant-2 (impulse-Casimir) linearized kernel: qe = q(y_j, x) - Q(y).
+@partial(jax.jit, static_argnames=("increase", "interpret", "tj", "bx", "yb",
+                                   "yk"))
+def lwa_lin_pallas(qk, Qc, Wz, E, *, increase: bool, interpret: bool = False,
+                   tj: int = _TJ, bx: int = _BX, yb: int = _YB, yk: int = _YK):
+    """-(R + E) for the linearised LWA, R as in the module docstring.
 
-        LWA2_j(x) = -( R_j(x) + E[j,x] ),
-        E[j,x] = -sum_{y<j} (q_j(x) - Q(y))*W(y,x)
-
-    with R_j = sum_y ext(q_j(x) - Q(y)) * W(y,x) — ext = max for
-    increase=True (the reference's flipped mask, core.py:860-872), min
-    otherwise.  Like the v1 kernel, E is built in VMEM scratch at t == 0 of
-    each (batch, x-block) via the telescoping recurrence
-
-        E[j+1] = E[j] + (Q~[j] - q~[j+1])*W[j] - (q~[j+1] - q~[j])*P0[j]
-
-    (deviation-scaled increments; exact for valid rows regardless of NaN
-    sanitization).  Invalid profile rows arrive as +/-inf sentinels in
-    Qt_ref — the extremum clamps them to zero against the zeroed weights —
-    and NaN tracer cells at the surface row zero the whole output cell
-    (reference: their qe is NaN for every y)."""
-    del Qs_ref  # prefetch operand; the sanitized column Qt_ref is used
-    t = pl.program_id(2)
-    Qcol = Qt_ref[0]                  # (Ny, 1): sentinel profile column
-
-    @pl.when(t == 0)
-    def _():
-        qr = q_ref[0]
-        Wr = W_ref[...]
-        validQ = jnp.isfinite(Qcol)
-        # isfinite on q/W too — lin-family inf semantics, see _kernel_lin
-        Wv = jnp.where(validQ & jnp.isfinite(Wr), Wr, 0.0)
-        Wv_ref[...] = Wv
-        qt = jnp.where(jnp.isfinite(qr), qr, 0.0)
-        Qt = jnp.where(validQ, Qcol, 0.0)
-        iota = jax.lax.broadcasted_iota(jnp.int32, (qr.shape[0], 1), 0)
-        Wprev = jnp.where(iota >= 1, pltpu.roll(Wv, 1, 0), 0.0)
-        P0 = _cumsum_tree(Wprev, iota)      # P0[j] = sum_{y<j} Wv
-        qprev = jnp.where(iota >= 1, pltpu.roll(qt, 1, 0), 0.0)
-        Qprev = jnp.where(iota >= 1, pltpu.roll(Qt, 1, 0), 0.0)
-        inc = ((Qprev - qt) * Wprev
-               - (qt - qprev) * (P0 - Wprev))  # P0 - Wprev = P0[j-1]
-        inc = jnp.where(iota >= 1, inc, 0.0)
-        E_ref[...] = _cumsum_tree(inc, iota)
-
-    def body(jj, _):
-        j = t * _TJ + jj
-
-        @pl.when(j < ny)
-        def _():
-            qrow = q_ref[0, j, :]                     # (nxb,)
-            qe = qrow[None, :] - Qcol
-            ext = jnp.maximum(qe, 0.0) if increase else jnp.minimum(qe, 0.0)
-            R = jnp.sum(ext * Wv_ref[...], axis=0)
-            row = -(R + E_ref[jj + t * _TJ, :])
-            out_ref[0, jj, :] = jnp.where(jnp.isfinite(qrow), row, 0.0)
-        return 0
-
-    jax.lax.fori_loop(0, _TJ, body, 0, unroll=True)
-
-
-def _kernel(Qs_ref, q_ref, Qt_ref, W_ref, out_ref, *, increase: bool,
-            part: str, variant2: bool, ny: int):
-    b = pl.program_id(0)
-    t = pl.program_id(2)
-    q = q_ref[0]                      # (Ny, Nx), VMEM-resident across t
-    W = W_ref[...]
-    iy = jax.lax.broadcasted_iota(jnp.int32, (q.shape[0], 1), 0)
-    qnan = jnp.isnan(q)
-
-    def body(jj, _):
-        j = t * _TJ + jj
-
-        @pl.when(j < ny)
-        def _():
-            m = iy >= j
-            if variant2:
-                # qe = q(y_j, x) - Q(y): outer difference of one tracer row
-                # against the sorted profile (core.py:860); Q arrives
-                # pre-transposed (Ny, 1) so no lane->sublane relayout occurs
-                qrow = q_ref[0, j, :]                   # (Nx,)
-                Qcol = Qt_ref[0]                        # (Ny, 1)
-                qe = qrow[None, :] - Qcol
-                nan = jnp.isnan(qrow)[None, :] | jnp.isnan(Qcol)
-                signed = _signed_term(qe, m, not increase, part, increase)
-            else:
-                Qj = Qs_ref[b, j]                       # SMEM scalar
-                qe = q - Qj
-                # NaN profile rows integrate to zero (reference nansum:
-                # qe is NaN everywhere so every product is dropped)
-                nan = qnan | jnp.isnan(Qj)
-                signed = _signed_term(qe, m, increase, part, increase)
-            term = jnp.where(nan, 0.0, signed * W)
-            out_ref[0, jj, :] = -jnp.sum(term, axis=0)
-        return 0
-
-    jax.lax.fori_loop(0, _TJ, body, 0, unroll=True)
-
-
-# Per-operand budget for the snapshot block.  The kernel keeps q, W, and a
-# few elementwise temporaries of the same shape live simultaneously, so this
-# must be a small fraction of the 16 MB VMEM (measured: 4 MB blocks OOM at
-# ~26 MB scoped usage on v5e).
-_VMEM_BUDGET = 3 * 2 ** 19  # 1.5 MB
-_YB = 256  # reduction rows per block in the tall-grid (y-blocked) kernel
-
-
-def _kernel_yblocked(Qs_ref, qy_ref, qj_ref, Qt_ref, W_ref, out_ref, *,
-                     increase: bool, part: str, variant2: bool, ny: int):
-    """Tall-grid variant: the y reduction is split into _YB-row blocks that
-    accumulate into the output tile (the innermost grid dimension), so VMEM
-    holds only one (YB, nxb) panel regardless of Ny."""
-    b = pl.program_id(0)
-    t = pl.program_id(2)
-    yb = pl.program_id(3)
-    qy = qy_ref[0]                    # (YB, nxb) reduction rows
-    W = W_ref[...]
-    iy = (jax.lax.broadcasted_iota(jnp.int32, (qy.shape[0], 1), 0)
-          + yb * _YB)
-    qnan = jnp.isnan(qy)
-
-    @pl.when(yb == 0)
-    def _():
-        out_ref[...] = jnp.zeros(out_ref.shape, out_ref.dtype)
-
-    def body(jj, _):
-        j = t * _TJ + jj
-
-        @pl.when(j < ny)
-        def _():
-            valid_row = iy < ny       # y padding rows contribute nothing
-            m = iy >= j
-            if variant2:
-                qrow = qj_ref[0, jj, :]               # surface row (nxb,)
-                Qcol = Qt_ref[0]                      # (YB, 1) local block
-                qe = qrow[None, :] - Qcol
-                nan = jnp.isnan(qrow)[None, :] | jnp.isnan(Qcol)
-                signed = _signed_term(qe, m, not increase, part, increase)
-            else:
-                Qj = Qs_ref[b, j]
-                qe = qy - Qj
-                # NaN profile rows integrate to zero (reference nansum)
-                nan = qnan | jnp.isnan(Qj)
-                signed = _signed_term(qe, m, increase, part, increase)
-            term = jnp.where(nan | ~valid_row, 0.0, signed * W)
-            out_ref[0, jj, :] += -jnp.sum(term, axis=0)
-        return 0
-
-    jax.lax.fori_loop(0, _TJ, body, 0, unroll=True)
-
-
-def _choose_nxb(Ny: int, itemsize: int, Nx: int):
-    """X block: whole row set if it fits the VMEM budget, else 512-lane
-    panels (halved until they fit)."""
-    if Ny * Nx * itemsize <= _VMEM_BUDGET:
-        return Nx
-    nxb = 512
-    while Ny * nxb * itemsize > _VMEM_BUDGET and nxb > 128:
-        nxb //= 2
-    return nxb
-
-
-def _lwa_pallas_lin(q, Q, W, *, increase: bool, variant2: bool,
-                    interpret: bool):
-    """part='all' launcher for the linearized kernels: center by the
-    profile midpoint (exact — the mask depends only on sign(qe)), pad, and
-    dispatch.  NaN sanitization and the t-term E prefix happen inside the
-    kernels at t == 0 of each (batch, x-block); see _kernel_lin[2] for the
-    telescoping recurrences and their f32 rationale."""
-    B, Ny, Nx = q.shape
-    Wb = jnp.broadcast_to(W, (Ny, Nx))
-    validQ = jnp.isfinite(Q)
-    c0 = jnp.where(jnp.any(validQ, -1),
-                   jnp.nanmean(jnp.where(validQ, Q, jnp.nan), axis=-1), 0.0)
-    c0 = c0.astype(q.dtype)
-    qc = q - c0[:, None, None]
-    Qc = Q - c0[:, None]
-
-    Wz = jnp.where(jnp.isfinite(Wb), Wb, 0.0)
-    # sentinel sign: the c-term extremum must clamp invalid cells to zero
-    sent = jnp.asarray(jnp.inf if increase else -jnp.inf, q.dtype)
-    Qt = jnp.where(validQ, Qc, 0.0)                      # recurrence-safe
-    if variant2:
-        # reduction rows are profile rows; invalid ones clamp via the
-        # sentinel on Q (ext flips to max for increase=True)
-        Qs = jnp.where(validQ, Qc, sent)
-    qk = qc  # NaN cells are sanitized in-kernel (v1) / row-masked (v2)
-
-    # both fused kernels hold (Ny, nxb) scratches plus the t == 0 prep
-    # temporaries, so halve the block budget relative to the pairwise form
-    nxb = _choose_nxb(Ny, q.dtype.itemsize * 2, Nx)
-    pad_x = (-Nx) % nxb
-    if pad_x:
-        def padx(a, fill):
-            return jnp.concatenate(
-                [a, jnp.full(a.shape[:-1] + (pad_x,), fill, a.dtype)],
-                axis=-1)
-        qk = padx(qk, jnp.nan)          # padded cells: invalid either way
-        Wz = padx(Wz, 0.0)
-    Nxp = Nx + pad_x
-    ntj = pl.cdiv(Ny, _TJ)
-    n_xb = Nxp // nxb
-    if variant2:
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=(B, n_xb, ntj),
-            in_specs=[
-                pl.BlockSpec((1, Ny, nxb), lambda b, x, t, *_: (b, 0, x),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, Ny, 1), lambda b, x, t, *_: (b, 0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((Ny, nxb), lambda b, x, t, *_: (0, x),
-                             memory_space=pltpu.VMEM),
-            ],
-            out_specs=pl.BlockSpec((1, _TJ, nxb),
-                                   lambda b, x, t, *_: (b, t, x)),
-            scratch_shapes=[pltpu.VMEM((Ny, nxb), q.dtype)] * 2,
-        )
-        out = pl.pallas_call(
-            partial(_kernel_lin2, increase=increase, ny=Ny),
-            out_shape=jax.ShapeDtypeStruct((B, ntj * _TJ, Nxp), q.dtype),
-            grid_spec=grid_spec, interpret=interpret,
-        )(Qc, qk, Qs[..., None], Wz)
-    else:
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=(B, n_xb, ntj),
-            in_specs=[
-                pl.BlockSpec((1, Ny, nxb), lambda b, x, t, *_: (b, 0, x),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((Ny, nxb), lambda b, x, t, *_: (0, x),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, Ny, 1), lambda b, x, t, *_: (b, 0, 0),
-                             memory_space=pltpu.VMEM),
-            ],
-            out_specs=pl.BlockSpec((1, _TJ, nxb),
-                                   lambda b, x, t, *_: (b, t, x)),
-            scratch_shapes=[pltpu.VMEM((Ny, nxb), q.dtype)] * 3,
-        )
-        out = pl.pallas_call(
-            partial(_kernel_lin, increase=increase, ny=Ny),
-            out_shape=jax.ShapeDtypeStruct((B, ntj * _TJ, Nxp), q.dtype),
-            grid_spec=grid_spec, interpret=interpret,
-        )(Qc, qk, Wz, Qt[..., None])
-    return out[:, :Ny, :Nx]
-
-
-@partial(jax.jit, static_argnames=("increase", "part", "variant2", "tile_j",
-                                   "interpret", "pairwise"))
-def lwa_pallas(q: jax.Array, Q: jax.Array, W: jax.Array, *, increase: bool,
-               part: str = "all", variant2: bool = False, tile_j: int = 0,
-               interpret: bool = False, pairwise: bool = True) -> jax.Array:
-    """LWA on TPU via Pallas.
-
-    q : (B, Ny, Nx) tracer;  Q : (B, Ny) sorted profile;  W : (Ny, Nx)
-    composed weight (wei*dA or wei*dy).  Returns (B, Ny, Nx).
-    (``tile_j`` is accepted for API stability; the surface tile is fixed at
-    the f32 sublane width.)
-
-    ``pairwise=True`` (the default) keeps the reference's direct masked
-    summation order (f32 noise ~1e-6 of the max); ``pairwise=False`` routes
-    part='all' to the linearized 4-op kernels (~2x faster, f32 noise ~5e-5
-    of the max — the R and E terms cancel).  The diagnostics layer opts into
-    the linearized kernels via ``method='lin'``; this public entry point
-    stays reference-faithful by default.
-
-    Grids whose (Ny, Nx) snapshot exceeds the VMEM budget are blocked along
-    X — valid because every surface reduction is x-separable (the mask
-    depends only on the row index) — with NaN x-padding that contributes
-    nothing.
+    qk : (B, Ny, Nx) centred tracer, invalid cells set to the clamping
+         sentinel (+inf for ``increase``, else -inf);
+    Qc : (B, Ny) centred profile (NaN rows give zero output rows);
+    Wz : (Ny, Nx) weight with non-finite cells zeroed;
+    E  : (B, Ny, Nx) t-term prefix.
+    Returns (B, Ny, Nx).
     """
-    del tile_j
-    B, Ny, Nx = q.shape
-    ntj = pl.cdiv(Ny, _TJ)
-
-    if Ny * 128 * q.dtype.itemsize > _VMEM_BUDGET:
-        return _lwa_pallas_yblocked(q, Q, W, increase=increase, part=part,
-                                    variant2=variant2, interpret=interpret)
-
-    if part.lower() == "all" and not pairwise:
-        # opt-in: the linearized kernels do the same job in 4 vector ops per
-        # (surface, cell) pair instead of 7, at an f32 noise floor of
-        # ~5e-5 of the max (R and E cancel); the default pairwise=True is
-        # the reference's direct masked summation (~1e-6)
-        return _lwa_pallas_lin(q, Q, W, increase=increase, variant2=variant2,
-                               interpret=interpret)
-
-    nxb = _choose_nxb(Ny, q.dtype.itemsize, Nx)
-    pad_x = (-Nx) % nxb
-    if pad_x:
-        q = jnp.concatenate(
-            [q, jnp.full((B, Ny, pad_x), jnp.nan, q.dtype)], axis=-1)
-        W = jnp.concatenate(
-            [W, jnp.zeros((Ny, pad_x), W.dtype)], axis=-1)
-    Nxp = Nx + pad_x
-    n_xb = Nxp // nxb
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(B, n_xb, ntj),          # surface index innermost: q stays in VMEM
-        in_specs=[
-            pl.BlockSpec((1, Ny, nxb), lambda b, x, t, *_: (b, 0, x),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, Ny, 1), lambda b, x, t, *_: (b, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((Ny, nxb), lambda b, x, t, *_: (0, x),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((1, _TJ, nxb), lambda b, x, t, *_: (b, t, x)),
-    )
-    out = pl.pallas_call(
-        partial(_kernel, increase=increase, part=part.lower(),
-                variant2=variant2, ny=Ny),
-        out_shape=jax.ShapeDtypeStruct((B, ntj * _TJ, Nxp), q.dtype),
-        grid_spec=grid_spec,
+    B, Ny, Nx = qk.shape
+    grid = (B, pl.cdiv(Nx, bx), pl.cdiv(Ny, tj))
+    return pl.pallas_call(
+        partial(_kernel, ny=Ny, nx=Nx, increase=increase, tj=tj, bx=bx,
+                yb=yb, yk=yk),
+        out_shape=jax.ShapeDtypeStruct((B, Ny, Nx), qk.dtype),
+        grid=grid,
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=_NUM_WARPS,
+                                             num_stages=_NUM_STAGES),
         interpret=interpret,
-    )(Q, q, Q[..., None], W)
-    return out[:, :Ny, :Nx]
-
-
-def _lwa_pallas_yblocked(q, Q, W, *, increase: bool, part: str,
-                         variant2: bool, interpret: bool):
-    """Tall-grid path: block the y reduction (see _kernel_yblocked)."""
-    B, Ny, Nx = q.shape
-    nxb = 512
-    while _YB * nxb * q.dtype.itemsize > _VMEM_BUDGET and nxb > 128:
-        nxb //= 2
-    pad_x = (-Nx) % nxb
-    pad_y = (-Ny) % max(_YB, _TJ)
-    if pad_x:
-        q = jnp.concatenate(
-            [q, jnp.full((B, Ny, pad_x), jnp.nan, q.dtype)], axis=-1)
-        W = jnp.concatenate([W, jnp.zeros((Ny, pad_x), W.dtype)], axis=-1)
-    if pad_y:
-        q = jnp.concatenate(
-            [q, jnp.full((B, pad_y, q.shape[-1]), jnp.nan, q.dtype)], axis=1)
-        W = jnp.concatenate(
-            [W, jnp.zeros((pad_y, W.shape[-1]), W.dtype)], axis=0)
-        Q = jnp.concatenate(
-            [Q, jnp.zeros((B, pad_y), Q.dtype)], axis=1)
-    Nyp = Ny + pad_y
-    Nxp = Nx + pad_x
-    ntj = Nyp // _TJ
-    nyb = Nyp // _YB if Nyp % _YB == 0 else -(-Nyp // _YB)
-    # pad y further so _YB divides
-    extra = nyb * _YB - Nyp
-    if extra:
-        q = jnp.concatenate(
-            [q, jnp.full((B, extra, Nxp), jnp.nan, q.dtype)], axis=1)
-        W = jnp.concatenate([W, jnp.zeros((extra, Nxp), W.dtype)], axis=0)
-        Q = jnp.concatenate([Q, jnp.zeros((B, extra), Q.dtype)], axis=1)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(B, Nxp // nxb, ntj, nyb),  # yb innermost: out tile accumulates
-        in_specs=[
-            pl.BlockSpec((1, _YB, nxb), lambda b, x, t, y, *_: (b, y, x),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, _TJ, nxb), lambda b, x, t, y, *_: (b, t, x),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, _YB, 1), lambda b, x, t, y, *_: (b, y, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((_YB, nxb), lambda b, x, t, y, *_: (y, x),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((1, _TJ, nxb), lambda b, x, t, y, *_: (b, t, x)),
-    )
-    out = pl.pallas_call(
-        partial(_kernel_yblocked, increase=increase, part=part.lower(),
-                variant2=variant2, ny=Ny),
-        out_shape=jax.ShapeDtypeStruct((B, ntj * _TJ, Nxp), q.dtype),
-        grid_spec=grid_spec,
-        interpret=interpret,
-    )(Q, q, q, Q[..., None], W)
-    return out[:, :Ny, :Nx]
+        name="lwa_lin_cterm",
+    )(Qc, qk, Wz, E)

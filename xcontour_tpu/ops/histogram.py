@@ -1,6 +1,6 @@
 """Weighted-histogram CDF engine — the rearrangement primitive.
 
-This is the TPU-native replacement for the reference's xhistogram path
+This replaces the reference's xhistogram path
 (/root/reference/xcontour/core.py:1202-1325 ``_histogram``): a digitize
 (searchsorted) + segment-sum + prefix-scan pipeline instead of dask-chunked
 numpy bincounts.  Exact reference edge semantics are preserved:
@@ -25,6 +25,30 @@ import jax
 import jax.numpy as jnp
 
 
+_ROW = 512  # samples per partial histogram in _binned_sum
+
+
+def _binned_sum(w: jax.Array, idx: jax.Array, N: int) -> jax.Array:
+    """segment_sum of w (G,) into N bins with a two-level reduction: one
+    partial histogram per row of _ROW samples, then a tree sum over rows.
+
+    A flat float32 scatter-add sums ~G/N samples into each bin in arrival
+    order; on the GPU that order is the atomics' and changes from run to
+    run, and at 1e5-1e6 cells the rounding reached ~1e-6 of the total area.
+    Partial histograms put only a few samples in each (row, bin) slot, and
+    the row sum is an XLA reduction (a tree), so the error stays near
+    eps * log(G) and the atomics rarely contend."""
+    G = w.shape[-1]
+    pad = (-G) % _ROW
+    if pad:
+        w = jnp.concatenate([w, jnp.zeros((pad,), w.dtype)])
+        idx = jnp.concatenate([idx, jnp.zeros((pad,), idx.dtype)])
+    rows = (G + pad) // _ROW
+    seg = idx.reshape(rows, _ROW) + (jnp.arange(rows) * N)[:, None]
+    part = jax.ops.segment_sum(w, seg.reshape(-1), num_segments=rows * N)
+    return part.reshape(rows, N).sum(axis=0)
+
+
 def bincount_single(values: jax.Array, bins: jax.Array, weights: jax.Array):
     """Ascending-order weighted histogram for one flattened sample set.
 
@@ -46,7 +70,7 @@ def bincount_single(values: jax.Array, bins: jax.Array, weights: jax.Array):
 
     w = jnp.where(jnp.isnan(weights), 0.0, weights)
     w = jnp.where(valid, w, 0.0)
-    hist = jax.ops.segment_sum(w, jnp.clip(idx, 0, N - 1), num_segments=N)
+    hist = _binned_sum(w, jnp.clip(idx, 0, N - 1), N)
     return hist, bincrease
 
 
@@ -67,12 +91,11 @@ def _cdf_single(values: jax.Array, bins: jax.Array, weights: jax.Array,
 
 
 def _edges_cdf_xla(vf: jax.Array, edges: jax.Array, wf: jax.Array):
-    """Differentiable XLA twin of kernels.hist_pallas.histogram_pallas_multi:
-    (B, G) values, (B, N+1) ascending edges, (B, C, G) weights -> (B, C, N)
-    ascending CDF with identical edge/NaN semantics.  Used as the VJP body of
-    the Pallas forward (the kernel itself has no AD rule): linear in the
-    weights; values/edges get the correct a.e.-zero cotangent through the
-    integer digitize."""
+    """Several channels over one digitize: (B, G) values, (B, N+1) ascending
+    edges, (B, C, G) weights -> (B, C, N) ascending CDF with the edge/NaN
+    semantics of :func:`bincount_single`.  Linear in the weights;
+    values/edges get the correct a.e.-zero cotangent through the integer
+    digitize."""
     N = edges.shape[-1] - 1
 
     def one(v, e, w):
@@ -81,92 +104,11 @@ def _edges_cdf_xla(vf: jax.Array, edges: jax.Array, wf: jax.Array):
         valid = (idx >= 0) & (idx <= N - 1) & ~jnp.isnan(v)
         wv = jnp.where(jnp.isnan(w), 0.0, w)
         wv = jnp.where(valid[None, :], wv, 0.0)
-        hist = jax.vmap(lambda wc: jax.ops.segment_sum(
-            wc, jnp.clip(idx, 0, N - 1), num_segments=N))(wv)
+        hist = jax.vmap(lambda wc: _binned_sum(
+            wc, jnp.clip(idx, 0, N - 1), N))(wv)
         return jnp.cumsum(hist, axis=-1)
 
     return jax.vmap(one)(vf, edges, wf)
-
-
-@jax.custom_vjp
-def _pallas_cdf_multi_ad(vf, edges, wf):
-    """Pallas forward with the XLA twin's VJP, so jax.grad flows through the
-    TPU path (Pallas calls raise NotImplementedError under AD)."""
-    # module-attribute lookup so the interpreter-mode test monkeypatch of
-    # hist_pallas.histogram_pallas_multi is honored inside the custom_vjp
-    from ..kernels import hist_pallas as hk
-    return hk.histogram_pallas_multi(vf, edges, wf)
-
-
-def _pallas_cdf_multi_ad_fwd(vf, edges, wf):
-    return _pallas_cdf_multi_ad(vf, edges, wf), (vf, edges, wf)
-
-
-def _cdf_wf_cotangent(vf, edges, wf, g, block: int = 16):
-    """Gather-free weight cotangent of :func:`_edges_cdf_xla`.
-
-    The ascending-cumsum CDF is linear in the weights:
-    ``out[b,c,k] = sum_g wf[b,c,g] * 1[valid(g) & idx(g) <= k]``, so
-    ``cot_wf[b,c,g] = sum_k g[b,c,k] * 1[idx(g) <= k]`` on valid non-NaN
-    lanes.  ``idx <= k  <=>  v < edges[k+1]`` holds exactly for
-    searchsorted(side='right') even with duplicate edges, so the cotangent
-    is a blocked compare + einsum over levels — the same pass structure as
-    the forward — instead of autodiff's segment-sum backward, whose (B, G)
-    gathers cost ~260 ms at the headline shape (vs ~1 ms here; TPU gathers
-    are the recurring lesson in docs/PERF.md)."""
-    B, G = vf.shape
-    C = g.shape[1]
-    N = edges.shape[-1] - 1
-    e0, eN = edges[:, :1], edges[:, -1:]
-    top = vf == eN                          # idx forced to N-1: only k=N-1
-    in_rng = (vf >= e0) & (vf < eN)         # idx in [0, N-1] the normal way
-
-    ehi = edges[:, 1:]                      # e_{k+1} for level k, (B, N)
-    npad = (-N) % block
-    if npad:
-        # padded levels never fire (+inf edge) and carry zero cotangent
-        ehi = jnp.concatenate(
-            [ehi, jnp.full((B, npad), jnp.inf, ehi.dtype)], axis=-1)
-        g = jnp.concatenate(
-            [g, jnp.zeros((B, C, npad), g.dtype)], axis=-1)
-    nb = (N + npad) // block
-    ehi_b = ehi.reshape(B, nb, block)
-    g_b = g.reshape(B, C, nb, block)
-
-    def body(k, acc):
-        cmp = (vf[:, None, :] < ehi_b[:, k, :, None]).astype(g.dtype)
-        return acc + jnp.einsum("bkg,bck->bcg",
-                                cmp, g_b[:, :, k, :],
-                                preferred_element_type=g.dtype)
-
-    acc = jax.lax.fori_loop(0, nb, body,
-                            jnp.zeros((B, C, G), g.dtype))
-    acc = acc + jnp.where(top[:, None, :], g[:, :, N - 1:N], 0.0)
-    live = (in_rng | top)[:, None, :] & ~jnp.isnan(wf)
-    return jnp.where(live, acc, 0.0)
-
-
-def _pallas_cdf_multi_ad_bwd(res, g):
-    vf, edges, wf = res
-    return (jnp.zeros_like(vf), jnp.zeros_like(edges),
-            _cdf_wf_cotangent(vf, edges, wf, g))
-
-
-_pallas_cdf_multi_ad.defvjp(_pallas_cdf_multi_ad_fwd, _pallas_cdf_multi_ad_bwd)
-
-
-def _cdf_batched_pallas(vf: jax.Array, bf: jax.Array, wf: jax.Array,
-                        lt: bool) -> jax.Array:
-    """(B, G) x (B, N) -> (B, N) through the Pallas direct-CDF kernel."""
-    N = bf.shape[-1]
-    bincrease = bf[:, :1] < bf[:, -1:]
-    asc = jnp.where(bincrease, bf, bf[:, ::-1])
-    step = (asc[:, -1:] - asc[:, :1]) / (N - 1)
-    edges = jnp.concatenate([asc[:, :1] - step, asc], axis=1)
-    cdf = _pallas_cdf_multi_ad(vf, edges, wf[:, None, :])[:, 0]
-    if not lt:
-        cdf = cdf[:, -1:] - cdf
-    return jnp.where(bincrease, cdf, cdf[:, ::-1])
 
 
 def weighted_cdf_multi(values: jax.Array, bins: jax.Array, weights_list,
@@ -174,18 +116,13 @@ def weighted_cdf_multi(values: jax.Array, bins: jax.Array, weights_list,
     """Several weighted CDFs over the SAME values and bins in one pass.
 
     The Keff chain needs the area CDF and the |grad q|^2 CDF of the same
-    tracer/levels — on TPU the Pallas kernel digitizes once and reduces every
-    channel against the shared per-level mask.  Elsewhere it simply loops.
+    tracer/levels: the values are digitized once and every channel is
+    scattered against the shared bin indices.
 
     weights_list : sequence of arrays broadcastable to ``values``.
     Returns a list of (..., N) arrays in the same order.
     """
-    from .. import config
-
     C = len(weights_list)
-    if not (config.use_pallas() and C <= 8):
-        return [weighted_cdf(values, bins, w, lt) for w in weights_list]
-
     batch_shape = values.shape[:-2]
     G = values.shape[-2] * values.shape[-1]
     N = bins.shape[-1]
@@ -200,7 +137,7 @@ def weighted_cdf_multi(values: jax.Array, bins: jax.Array, weights_list,
     asc = jnp.where(bincrease, bf, bf[:, ::-1])
     step = (asc[:, -1:] - asc[:, :1]) / (N - 1)
     edges = jnp.concatenate([asc[:, :1] - step, asc], axis=1)
-    cdf = _pallas_cdf_multi_ad(vf, edges, wf)                 # (B, C, N)
+    cdf = _edges_cdf_xla(vf, edges, wf)                       # (B, C, N)
     if not lt:
         cdf = cdf[:, :, -1:] - cdf
     cdf = jnp.where(bincrease[:, None, :], cdf, cdf[:, :, ::-1])
@@ -222,25 +159,12 @@ def weighted_cdf(values: jax.Array, bins: jax.Array, weights: jax.Array,
     Returns
     -------
     (..., N) with ``out[..., k]`` paired with ``bins[..., k]``.
-
-    On TPU (config.use_pallas) the CDF is computed by the Pallas
-    direct-comparison kernel; elsewhere by digitize + segment-sum.
     """
-    from .. import config
-
     batch_shape = values.shape[:-2]
     G = values.shape[-2] * values.shape[-1]
     v = jnp.reshape(values, batch_shape + (G,))
     w = jnp.reshape(jnp.broadcast_to(weights, values.shape), batch_shape + (G,))
     N = bins.shape[-1]
-
-    if config.use_pallas():
-        b = jnp.broadcast_to(bins, batch_shape + (N,))
-        vf = jnp.reshape(v, (-1, G))
-        wf = jnp.reshape(w, (-1, G))
-        bf = jnp.reshape(b, (-1, N))
-        out = _cdf_batched_pallas(vf, bf, wf, lt)
-        return jnp.reshape(out, batch_shape + (N,))
 
     if bins.ndim == 1 and not batch_shape:
         return _cdf_single(v, bins, w, lt)

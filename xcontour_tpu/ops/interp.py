@@ -36,11 +36,11 @@ _DENSE_ELEMS_MAX = 1 << 24
 def _interp_dense(x2, xf2, yf2, inc, extrapolate):
     """np.interp by dense compare + one-hot contraction, batched.
 
-    jnp.interp lowers to a per-query binary search with gathers — measured
-    ~1 ms for (32, 256)-from-(32, 121) on v5e, dominating the pipeline's
-    small-table lookups.  For small N the dense form (count xf <= x, then
-    contract one-hot index masks against xf/yf) is pure VPU compare/FMA work
-    at O(M*N) and runs in ~30 us for the same shapes.  Matches np.interp:
+    jnp.interp lowers to a per-query binary search with gathers.  For small
+    N the dense form (count xf <= x, then contract one-hot index masks
+    against xf/yf) is pure elementwise compare/FMA work at O(M*N) with no
+    gathers; which is faster on the GPU is not measured yet (ROADMAP S4).
+    Matches np.interp:
     side='right' index, zero-width intervals return the right endpoint,
     out-of-range clamps (or NaN for extrapolate='nan').  One deliberate
     deviation: a NaN query always returns NaN, even against a fully

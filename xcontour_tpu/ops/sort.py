@@ -8,9 +8,8 @@ mathematically exact result at O(G log G):
 
     sort q -> prefix-sum the weights -> searchsorted the contour levels.
 
-On TPU the sort lowers to XLA's bitonic sorter and the prefix sum to an
-efficient scan — both well-tiled library kernels.  Exactness makes this the
-preferred path when contour counts are large (the binning error of the hist
+The sort and the prefix sum are XLA library operations. Exactness makes this
+the preferred path when contour counts are large (the binning error of the hist
 path grows with N because bins shrink below the field's quantization).
 
 Semantics: strict comparison (q < c for lt, q > c for gt) exactly like the

@@ -83,55 +83,7 @@ def gradient(q: jax.Array, grid: Grid, bc_y: str | None = None):
     return qy, qx
 
 
-def _squared_gradient_xla(q, dy, dx, *, periodic_x: bool, bc_y: str):
-    """The XLA form of |grad q|^2 — also the custom-VJP backward of the
-    Pallas roll-stencil kernel (which has no AD rule)."""
-    qx = _centered_x(q, periodic_x) / dx
-    qy = _centered_y(q, bc_y) / dy[:, None]
-    return qx * qx + qy * qy
-
-
-def _squared_gradient_pallas_ad(q, dy, dx, *, periodic_x: bool, bc_y: str):
-    """Pallas forward with the XLA twin's VJP (the pattern shared by the
-    CDF, LWA, and length kernels): jax.grad through the TPU stencil path
-    differentiates :func:`_squared_gradient_xla`."""
-    @jax.custom_vjp
-    def f(q, dy, dx):
-        from ..kernels.stencil_pallas import squared_gradient_pallas
-        Ny, Nx = q.shape[-2:]
-        out = squared_gradient_pallas(
-            q.reshape((-1, Ny, Nx)), jnp.broadcast_to(dx, (Ny, Nx)),
-            dy[:, None], periodic_x=periodic_x, bc_y=bc_y)
-        return out.reshape(q.shape)
-
-    def fwd(q, dy, dx):
-        return f(q, dy, dx), (q, dy, dx)
-
-    def bwd(res, g):
-        qr, dyr, dxr = res
-        _, vjp = jax.vjp(
-            lambda a, b, c: _squared_gradient_xla(a, b, c,
-                                                  periodic_x=periodic_x,
-                                                  bc_y=bc_y),
-            qr, dyr, dxr)
-        return vjp(g)
-
-    f.defvjp(fwd, bwd)
-    return f(q, dy, dx)
-
-
 def squared_gradient(q: jax.Array, grid: Grid, bc_y: str | None = None) -> jax.Array:
-    """|grad q|^2 (the Keff integrand), matching compat.squared_gradient.
-
-    On TPU (VMEM-sized snapshots) a Pallas roll-stencil kernel computes it
-    in one pass; XLA otherwise."""
-    if bc_y is None:
-        bc_y = grid.bc_y
-    from ..kernels.stencil_pallas import pallas_ok
-    dy, dx = _spacing(grid, q.dtype)
-    if pallas_ok(q):
-        return _squared_gradient_pallas_ad(q, dy, dx,
-                                           periodic_x=grid.periodic_x,
-                                           bc_y=bc_y)
-    return _squared_gradient_xla(q, dy, dx, periodic_x=grid.periodic_x,
-                                 bc_y=bc_y)
+    """|grad q|^2 (the Keff integrand), matching compat.squared_gradient."""
+    qy, qx = gradient(q, grid, bc_y)
+    return qx * qx + qy * qy

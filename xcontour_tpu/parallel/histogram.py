@@ -1,9 +1,9 @@
-"""Explicitly sharded weighted-histogram CDF: local bincount + psum over ICI.
+"""Explicitly sharded weighted-histogram CDF: local bincount + psum.
 
 The histogram is the one reduction in the framework whose input (the full
 grid) may be sharded spatially.  Under shard_map each device bins only its
 local X slab — the bins are replicated, tiny (N ~ 10^2), and the psum over the
-'x' axis moves just N floats per device over ICI, after which the prefix scan
+'x' axis moves just N floats per device over NVLink, after which the prefix scan
 and lt/gt flip run replicated.  This is the hand-written equivalent of what
 GSPMD derives for the jit path; it exists so the collective layout is explicit
 and testable (SURVEY.md §5, distributed communication plan).
@@ -34,7 +34,7 @@ def sharded_weighted_cdf(values: jax.Array, bins: jax.Array,
             hist, binc = bincount_single(vi.ravel(), b, wi.ravel())
             return hist, binc
         hist, binc = jax.vmap(one)(v, w)
-        hist = jax.lax.psum(hist, x_axis)          # N floats over ICI
+        hist = jax.lax.psum(hist, x_axis)          # N floats over NVLink
         return cdf_from_hist(hist, binc[:, None], lt)
 
     fn = jax.shard_map(

@@ -2,7 +2,7 @@
 
 Marching-squares cells are local except at shard boundaries, where a cell
 spans the last local column and the right neighbor's first column.  Under
-shard_map each device fetches that single column over ICI (`lax.ppermute`),
+shard_map each device fetches that single column over NVLink (`lax.ppermute`),
 evaluates its own cells with the ordinary traversal-free kernel, and a psum
 of the (N,)-vector totals finishes the reduction — the spatial-decomposition
 plan of SURVEY.md §2.4 applied to the geometry path (reference
@@ -78,7 +78,7 @@ def sharded_contour_lengths(data: jax.Array, contours: jax.Array,
 
         totals = jax.lax.map(one_level, jnp.arange(N))   # (N, Bl)
         totals = jnp.moveaxis(totals, 0, -1)             # (Bl, N)
-        return jax.lax.psum(totals, x_axis)              # N floats over ICI
+        return jax.lax.psum(totals, x_axis)              # N floats over NVLink
 
     fn = jax.shard_map(
         local, mesh=mesh,

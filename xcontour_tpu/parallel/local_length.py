@@ -3,9 +3,9 @@
 The windowed workload (reference tests/test_localLength.py:41-69, re-designed
 in diagnostics/local_length.py) is compute-dominated by the per-window
 marching-squares evaluation — O(n_windows * window^2) — while its operand is
-one (Ny, Nx) snapshot.  The TPU-native decomposition is therefore
+one (Ny, Nx) snapshot.  The natural decomposition is therefore
 gather-then-compute: each device `all_gather`s the X-sharded tracer once over
-ICI (the only collective; cheap relative to the window evaluations), the
+NVLink (the only collective; cheap relative to the window evaluations), the
 flattened window-anchor list is block-sharded across the mesh axis, and each
 device evaluates exactly its own chunk with the traversal-free cell kernel on
 dynamic slices.  Window levels (the rolling means) come from the O(grid)
@@ -63,7 +63,7 @@ def sharded_local_lengths(data: jax.Array, ydef: jax.Array, xdef: jax.Array,
     assert Nx % nsh == 0, "X axis must divide evenly across the mesh"
 
     def local(dchunk, lvc, ysc, xsc):
-        # one ICI collective: reassemble the panel, then pure local compute
+        # one collective: reassemble the panel, then pure local compute
         # with the same window evaluation as the single-device XLA path
         d = jax.lax.all_gather(dchunk, axis, axis=1, tiled=True)   # (Ny, Nx)
         panels = _cell_panels(d, yc, xc)

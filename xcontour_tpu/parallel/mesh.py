@@ -2,11 +2,13 @@
 
 The reference has no distributed backend at all — its only parallelism is
 dask chunking over batch dims (SURVEY.md §2.4).  Here scaling is native JAX
-SPMD: a 2-D ('batch', 'x') mesh where the snapshot batch rides the slower
-axis (DCN across hosts) and the grid's X dimension is sharded across ICI
-neighbors.  Every pipeline is pure, so sharding is applied by annotating the
-inputs (GSPMD inserts the psum/all-gather collectives) or explicitly via
-shard_map for the histogram reduction (parallel/histogram.py).
+SPMD: a 2-D ('batch', 'x') mesh where the snapshot batch is split across
+devices and the grid's X dimension is sharded across the cards of one host.
+On four NVLink-connected cards every card reaches every other at the same
+rate, so the mesh shape follows the algorithm alone.  Every pipeline is
+pure, so sharding is applied by annotating the inputs (GSPMD inserts the
+psum/all-gather collectives) or explicitly via shard_map for the histogram
+reduction (parallel/histogram.py).
 """
 
 from __future__ import annotations
@@ -40,17 +42,14 @@ def make_mesh(n_devices: Optional[int] = None,
 
 def hybrid_device_array(devices: Sequence, x_size: int,
                         slice_of=None) -> np.ndarray:
-    """Arrange ``devices`` into the hybrid (batch, x) array: slices (hosts /
-    pod slices, i.e. DCN islands) stack along the BATCH axis and each
-    slice's own devices form contiguous ICI 'x' groups, so no 'x'-axis
-    collective ever crosses DCN.
+    """Arrange ``devices`` into the hybrid (batch, x) array: hosts stack
+    along the BATCH axis and each host's own devices form contiguous 'x'
+    groups, so no 'x'-axis collective ever leaves a host's NVLink domain.
 
     Pure topology logic, factored out of :func:`make_hybrid_mesh` so the
-    multi-slice branch is unit-testable with fake attributed devices
-    (round-3 verdict item 4): ``slice_of`` maps a device to its DCN-island
-    id and defaults to ``process_index`` (each host is one island on a TPU
-    pod; a device's ``slice_index``, where the runtime exposes one, can be
-    passed instead).
+    multi-host branch is unit-testable with fake attributed devices:
+    ``slice_of`` maps a device to its host group and defaults to
+    ``process_index`` (one process per host).
     """
     if slice_of is None:
         def slice_of(d):
@@ -74,20 +73,21 @@ def hybrid_device_array(devices: Sequence, x_size: int,
 def make_hybrid_mesh(axis_names: Sequence[str] = ("batch", "x"),
                      x_size: Optional[int] = None,
                      slice_of=None) -> Mesh:
-    """Multi-host ('batch', 'x') mesh: batch rides DCN, x rides ICI.
+    """Multi-host ('batch', 'x') mesh: batch across hosts, x within one.
 
-    On a multi-host pod slice (``jax.process_count() > 1``) the batch axis
-    must map to the slow inter-host network and the spatial axis to in-host
-    ICI neighbors; :func:`hybrid_device_array` places devices so each
-    slice's local devices form the ICI ('x') groups.  Snapshots are
-    embarrassingly parallel, so the batch axis tolerates DCN latency; the
-    histogram psum and length reductions stay on ICI (SURVEY.md §2.4, §5).
+    With several processes (``jax.process_count() > 1``, one per host) the
+    batch axis maps to the slower inter-host network and the spatial axis
+    to the cards of one host; :func:`hybrid_device_array` places devices so
+    each host's local devices form the 'x' groups.  Snapshots are
+    embarrassingly parallel, so the batch axis tolerates network latency;
+    the histogram psum and length reductions stay within a host
+    (SURVEY.md §2.4, §5).
 
-    Single-process (this image, tests, the virtual CPU mesh) reduces exactly
-    to :func:`make_mesh` over all visible devices — unless ``slice_of`` is
-    given, which forces the hybrid placement with the caller's DCN-island
-    attribution (how the dryrun executes the multi-slice branch on the
-    virtual mesh).
+    A single process (one host of one or four cards, the tests, the
+    virtual CPU mesh) reduces exactly to :func:`make_mesh` over all visible
+    devices — unless ``slice_of`` is given, which forces the hybrid
+    placement with the caller's host attribution (how the dryrun executes
+    the multi-host branch on the virtual mesh).
     """
     if jax.process_count() <= 1 and slice_of is None:
         return make_mesh(axis_names=axis_names, x_size=x_size)
@@ -99,14 +99,12 @@ def make_hybrid_mesh(axis_names: Sequence[str] = ("batch", "x"),
     n_slices = len({slice_of(d) for d in devs})
     local = len(devs) // n_slices
     if x_size is None:
-        x_size = local            # whole-slice ICI groups by default
+        x_size = local            # whole-host x groups by default
     if not custom_slicing:
-        # real pod, default host-is-an-island attribution: let jax's
-        # topology-aware placement lay each in-slice (batch, x) tile onto
-        # physically adjacent ICI coordinates (a 2-D per-host topology,
-        # e.g. v5e 4x2, would otherwise get enumeration-order x rows that
-        # span non-neighbor links).  Falls back to enumeration order where
-        # the backend exposes no coords (CPU/virtual devices).
+        # several hosts, one process each: let jax's topology-aware
+        # placement lay each host's (batch, x) tile onto its own devices.
+        # Falls back to enumeration order where the backend exposes no
+        # coords (CPU/virtual devices).
         try:
             from jax.experimental import mesh_utils
             arr = mesh_utils.create_hybrid_device_mesh(
@@ -123,17 +121,17 @@ def make_hybrid_mesh(axis_names: Sequence[str] = ("batch", "x"),
 
 
 def _warn_topology_fallback(devs, e: Exception) -> None:
-    """On REAL accelerators a topology/misconfiguration error from the
-    coords-aware placement would otherwise silently degrade ICI placement to
-    enumeration order, so name it there (ADVICE r4 #3); CPU/virtual devices
-    (which expose no coords) fall back silently by design."""
+    """On real accelerators a topology/misconfiguration error from the
+    coords-aware placement would otherwise silently degrade the placement to
+    enumeration order, so name it there; CPU/virtual devices (which expose
+    no coords) fall back silently by design."""
     if any(d.platform != "cpu" for d in devs):
         import warnings
         warnings.warn(
             "make_hybrid_mesh: topology-aware placement unavailable "
             f"({type(e).__name__}: {e}); falling back to "
             "enumeration-order device layout — check the mesh shape "
-            "against the physical ICI topology", stacklevel=3)
+            "against the hosts' device layout", stacklevel=3)
 
 
 def shard_batch_spec(mesh: Mesh, ndim: int, batch_axis: str = "batch",
@@ -141,7 +139,7 @@ def shard_batch_spec(mesh: Mesh, ndim: int, batch_axis: str = "batch",
     """Sharding for a (..., Ny, Nx) field batch: leading axis over ``batch``,
     the last (X) axis over ``x``; Ny replicated (the equivalent dimension is
     reduced over in every diagnostic, so splitting it would put the heavy
-    LWA reduction across ICI for no benefit)."""
+    LWA reduction across devices for no benefit)."""
     spec = [None] * ndim
     if ndim >= 3:
         spec[0] = batch_axis

@@ -9,7 +9,7 @@ The merge is cheaper than a distributed sort: the conditional sum
 F(c) = sum_{q <lt/gt> c} w splits elementwise across shards, so each device
 sorts ONLY its local X slab (O(G_local log G_local)), prefix-sums the local
 weights, reads the N level values off the local CDF, and a single ``psum``
-of those N floats per batch element over the ICI 'x' axis reconstructs the
+of those N floats per batch element over the 'x' axis reconstructs the
 exact global answer — no all-to-all, no global sort, values never leave
 their shard.  Levels are few (N ~ 10^2) and replicated, exactly like the
 sharded histogram engine (parallel/histogram.py).
@@ -46,7 +46,7 @@ def sharded_exact_conditional_integral(
         # v, w: (B_local, Ny, Nx_local); b: (N,) or (B_local, N).
         # Local slab: exact sort + prefix + searchsorted at the levels...
         part = exact_conditional_integral(v, b, w, lt)
-        # ...then N floats per batch element over ICI merge the shards
+        # ...then N floats per batch element over NVLink merge the shards
         return jax.lax.psum(part, x_axis)
 
     fn = jax.shard_map(

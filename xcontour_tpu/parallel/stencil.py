@@ -3,12 +3,12 @@
 When the X axis of the plane is sharded across the mesh, the centered
 difference at shard boundaries needs each neighbor's edge column.  Under
 shard_map that is one `lax.ppermute` per direction — a single-column
-(Ny x 1) message to the ring neighbor over ICI — after which the stencil is
+(Ny x 1) message to the ring neighbor over NVLink — after which the stencil is
 the ordinary local computation (SURVEY.md §2.4 spatial-decomposition plan).
 
 GSPMD derives an equivalent program for `jnp.roll` automatically; this module
 is the explicit, testable version of that collective layout, and the pattern
-blocks for multi-host meshes where the X axis should stay on ICI.
+blocks for multi-host meshes where the X axis should stay within a host.
 """
 
 from __future__ import annotations

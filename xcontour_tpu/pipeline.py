@@ -59,7 +59,7 @@ def keff_pipeline(tracer: jax.Array, grid: Grid, grdS: Optional[jax.Array] = Non
         if table is None:
             table = core.cal_area_eqCoord_table_hist(mask, ydef, dA,
                                                      increase=increase, lt=lt)
-        # both conditional integrals share one digitize pass on TPU
+        # both conditional integrals share one digitize pass
         from .ops.histogram import weighted_cdf_multi
         intArea, intgrdS = weighted_cdf_multi(tracer, ctr, [dA, grdS * dA], lt)
     else:
@@ -189,7 +189,7 @@ def keff_lwa_pipeline(tracer: jax.Array, grid: Grid,
         table = core.cal_area_eqCoord_table_hist(mask, ydef, dA,
                                                  increase=increase, lt=lt)
     ctr = core.cal_contours(tracer, N, increase=increase)
-    # area and |grad q|^2 integrals share one digitize pass on TPU
+    # area and |grad q|^2 integrals share one digitize pass
     from .ops.histogram import weighted_cdf_multi
     intArea, intgrdS = weighted_cdf_multi(tracer, ctr, [dA, grdS * dA], lt)
     Yeq = table.lookup_coordinates(intArea)

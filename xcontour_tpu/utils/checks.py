@@ -1,7 +1,7 @@
 """Runtime validity checks usable under jit.
 
 The reference's only guard is ``_check_monotonicity`` (core.py:1328-1355),
-which prints offending slices and raises — impossible inside a compiled TPU
+which prints offending slices and raises — impossible inside a compiled device
 program.  Here the same guards are expressed with ``jax.experimental.checkify``
 so they run *inside* jit and surface as structured errors after the step, plus
 eager helpers for host-side use.

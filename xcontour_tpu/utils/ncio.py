@@ -6,7 +6,8 @@ framework needs:
 
 * :func:`load_dataset` reads either netCDF-4 (HDF5, via h5py) or classic
   netCDF-3 (via scipy.io) files into a plain ``dict`` of numpy arrays plus a
-  dims mapping — enough for every bundled / synthesized fixture.
+  dims mapping — enough for every bundled / synthesized fixture.  h5py is
+  imported only for netCDF-4 files, so the netCDF-3 path runs without it.
 * :func:`save_dataset` writes an HDF5/netCDF-4-flavoured file via h5py so
   pipeline outputs can round-trip.
 
@@ -70,9 +71,23 @@ class Dataset:
                      attrs=self.attrs)
 
 
+def _h5py():
+    """h5py, imported on first netCDF-4 use; a clear error where it is not
+    installed (classic netCDF-3 needs only scipy)."""
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError(
+            "netCDF-4 (HDF5) files need h5py, which is not installed; use "
+            "classic netCDF-3 instead (CLI: --format nc3; "
+            "Dataset.to_nc3 / save_dataset_nc3)") from e
+    return h5py
+
+
 def _load_h5(path: str, lazy: bool = False) -> Dataset:
-    import h5py
     from contextlib import nullcontext
+
+    h5py = _h5py()
 
     ds = Dataset()
     f = h5py.File(path, "r")
@@ -86,7 +101,7 @@ def _load_h5(path: str, lazy: bool = False) -> Dataset:
 
 
 def _visit_h5(ds, f, lazy):
-    import h5py
+    h5py = _h5py()
 
     if lazy:
         ds._keepalive.append(f)
@@ -166,6 +181,9 @@ def load_dataset(path: str, lazy: bool = False) -> Dataset:
     reserved for files that EXIST but parse in neither format."""
     if not os.path.exists(path):
         raise FileNotFoundError(f"netCDF file not found: {path}")
+    with open(path, "rb") as fh:
+        if fh.read(3) == b"CDF":          # classic netCDF-3 magic
+            return _load_nc3(path, lazy)
     try:
         return _load_h5(path, lazy)
     except OSError as e_h5:
@@ -190,7 +208,7 @@ def save_dataset(path: str, variables: Dict[str, np.ndarray], dims: Dict[str, Tu
     variable names to attribute dicts (units, long_name, ...), round-tripped
     through HDF5 attributes.
     """
-    import h5py
+    h5py = _h5py()
 
     coords = coords or {}
     attrs = attrs or {}

@@ -78,6 +78,107 @@ def synth_pv(nlev: int = 7, nlat: int = 181, nlon: int = 360, seed: int = 1):
     return variables, dims
 
 
+def gaussian_latitudes(nlat: int) -> np.ndarray:
+    """Ascending Gaussian-grid latitudes (degrees): the arcsine of the
+    Gauss-Legendre nodes, e.g. -89.46..89.46 for 256 rows."""
+    nodes, _ = np.polynomial.legendre.leggauss(nlat)
+    return np.rad2deg(np.arcsin(nodes))
+
+
+# (centre latitude, e-folding half-width in degrees, peak speed m/s) of the
+# zonal jets; the hemispheres differ, as in a solstice season
+_JETS = ((32.0, 10.0, 50.0), (-28.0, 12.0, 40.0), (60.0, 8.0, 20.0),
+         (-58.0, 10.0, 25.0))
+# the jets' relative vorticity enters the zonal profile at this fraction of
+# the stirring jets: enough for visible steps at the jets, small enough that
+# the sorted profile stays smooth (stronger steps flatten it on the jet
+# flanks, which no real barotropic field shows)
+_JET_PROFILE = 0.15
+_SMOOTH_PASSES = 2
+
+
+def synth_barotropic_vorticity(nt: int | None = None, nlat: int = 256,
+                               nlon: int = 512, seed: int = 0):
+    """Global barotropic absolute vorticity on the Data/barotropic_vorticity.nc
+    schema: ``absolute_vorticity(latitude, longitude)`` float32 on a
+    Gaussian grid (256 rows, -89.46..89.46 ascending; 512 columns,
+    0..359.3 step 360/512), or ``(time, latitude, longitude)`` when ``nt``
+    is given.
+
+    The field is a rearrangement of a zonal profile, as a conserved tracer
+    is: planetary vorticity 2*Omega*sin(lat) plus two zonal jets per
+    hemisphere (a subtropical one near 30 degrees and a weaker subpolar one
+    near 60), stirred by a chaotic map.  Each step of the map shears every
+    point zonally with the jets' angular velocity, then displaces it
+    meridionally by a few travelling Rossby-wave modes (zonal wavenumbers
+    2-7, random phases from ``seed``).  Iterating folds the jets' vorticity contours into filaments
+    and detached eddies, the texture that sets contour lengths, crossing
+    counts and LWA.  Snapshots of a time series advance the wave phases, so
+    they differ from one another.  A weak seeded noise (1e-4 of the range)
+    breaks exact ties between cells."""
+    rng = np.random.default_rng(seed)
+    lat = gaussian_latitudes(nlat)
+    lon = np.arange(nlon) * (360.0 / nlon)
+    phi0 = np.deg2rad(lat)
+
+    # zonal profile: planetary vorticity plus the jets' relative vorticity
+    # (zeta = -d(u cos phi)/(a cos phi dphi) of Gaussian jets u(phi))
+    def jets(phi):
+        u = np.zeros_like(phi)
+        for centre, width, amp in _JETS:
+            u = u + amp * np.exp(-((np.rad2deg(phi) - centre) / width) ** 2)
+        return u
+
+    fine = np.linspace(-np.pi / 2, np.pi / 2, 4 * nlat + 1)
+    ucos = _JET_PROFILE * jets(fine) * np.cos(fine)
+    zeta = -np.gradient(ucos, fine) / (Rearth * np.maximum(np.cos(fine),
+                                                           1e-6))
+    profile = 2.0 * omega * np.sin(fine) + zeta
+
+    # zonal shear of one map step: the jets' angular velocity, capped
+    # near the poles
+    shear = 0.35 * jets(fine) / 50.0 / np.maximum(np.cos(fine), 0.2)
+    # travelling wave modes of the stirring map
+    modes = [(k, rng.uniform(0.009, 0.02), rng.uniform(0, 2 * np.pi),
+              rng.uniform(-0.3, 0.3)) for k in (2, 3, 4, 5, 7)]
+    nsteps = 8
+
+    def snapshot(t):
+        ph = np.broadcast_to(phi0[:, None], (nlat, nlon)).copy()
+        lam = np.broadcast_to(np.deg2rad(lon)[None, :], (nlat, nlon)).copy()
+        for _ in range(nsteps):
+            lam = lam - np.interp(ph, fine, shear)
+            dphi = np.zeros_like(ph)
+            for k, amp, p0, c in modes:
+                dphi = dphi + amp * np.sin(k * lam + p0 + c * t)
+            ph = np.clip(ph + dphi * np.cos(ph), -np.pi / 2, np.pi / 2)
+        return np.interp(ph, fine, profile)
+
+    times = [0] if nt is None else range(nt)
+    vor = np.stack([snapshot(t) for t in times])
+    # resolve the filaments on the grid as a spectral model's truncation
+    # would: 1-2-1 smoothing passes, periodic in x
+    for _ in range(_SMOOTH_PASSES):
+        vor = 0.25 * (np.roll(vor, 1, -1) + 2 * vor + np.roll(vor, -1, -1))
+        vor = np.concatenate([vor[:, :1], 0.25 * (
+            vor[:, :-2] + 2 * vor[:, 1:-1] + vor[:, 2:]), vor[:, -1:]], 1)
+    vor = vor + 1e-4 * np.ptp(vor) * rng.standard_normal(vor.shape)
+    vor = vor.astype(np.float32)
+
+    variables = dict(latitude=lat.astype(np.float32),
+                     longitude=lon.astype(np.float32))
+    dims = dict(latitude=("latitude",), longitude=("longitude",))
+    if nt is None:
+        variables["absolute_vorticity"] = vor[0]
+        dims["absolute_vorticity"] = ("latitude", "longitude")
+    else:
+        variables["time"] = np.arange(nt, dtype=np.int32)
+        dims["time"] = ("time",)
+        variables["absolute_vorticity"] = vor
+        dims["absolute_vorticity"] = ("time", "latitude", "longitude")
+    return variables, dims
+
+
 def synth_internalwave(nt: int = 3, nz: int = 100, nx: int = 448,
                        seed: int = 2):
     """MITgcm-like internal-wave x-z slices on the Data/internalwave.nc
